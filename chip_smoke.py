@@ -9,22 +9,35 @@ caught):
 1. environment: card name and power limit, torch/CUDA versions, and the
    parallel ``nvcc`` build of every kernel from ``src/repro_torch/kernels``;
 2. kernels against their plain PyTorch versions on the card, at the serving
-   path's shapes, bf16 and f32, with the tolerances below; times of kernel,
-   plain version and PyTorch's ``scaled_dot_product_attention`` (a yardstick
-   only: the port never calls it) beside each kernel's bound;
+   paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
+   yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K3 at
+   mamba2-1.3b's, K4 at recurrentgemma-9b's, plus ragged and small cases;
+   times of kernel, plain version and, where one exists, a PyTorch call
+   computing the same function (a yardstick only: the port never calls
+   it) beside each kernel's bound;
 3. serving at full width: ``FunkyRuntime`` -> ``FunkyCL`` -> ``Monitor``
    serves full-width yi-9b (random weights from a seed) to DONE; the kernel
    launch counts must rise by 48 per prefill and 48 per decoded token;
 4. kernel path against plain path at full width (prefill + 4 decode steps
-   on one set of weights), after phase 3's weights are freed;
+   on one set of weights), after phase 3's weights are freed; for the
+   mamba2 and recurrentgemma paths in f32 and in bf16 (see ``_parity``);
 5. where the time goes at full width: a warm prefill and warm decode steps
    of the kernel path, timed, then traced with ``torch.profiler`` (device
    busy share, launches, the kernels that take the device time);
 6. evict/resume on the card at yi-9b-smoke: tokens equal an uninterrupted
-   run and the plain greedy loop.
+   run and the plain greedy loop;
+7-9. phases 3-5 for full-width mamba2-1.3b (batch 8, prompt 1024, 32
+   tokens): K3 48 launches per prefill, no attention kernel;
+10-12. phases 3-5 for full-width recurrentgemma-9b (batch 8, prompt 2560,
+   32 tokens, so the 2048 window masks in prefill and the ring wraps in
+   decode): per prefill K4 26 and K2 12 launches, per token K1 12;
+13. evict/resume on the card at mamba2-1.3b-smoke and
+   recurrentgemma-9b-smoke.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches on the main path and its numbers.
+Each model's weights are freed before the next model's phases.  The last
+line is ``{"ok": true, "device": {...}}``; the line before it is the card's
+name and power limit, and the one before that lists every kernel with its
+launches on its main path and its numbers.
 """
 
 from __future__ import annotations
@@ -49,8 +62,28 @@ PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 (no TF
 # outputs are about 0.05, and its bound is tighter.
 TOL = {("K1", "bfloat16"): (5e-3, 1e-2), ("K2", "bfloat16"): (2e-2, 2e-2),
        ("K1", "float32"): (1e-4, 1e-4), ("K2", "float32"): (1e-4, 1e-4)}
-LOGIT_REL_TOL = 5e-2     # phase 4: max|logit diff| / max|logit|, bf16
-PHASES = ("env", "kernels", "serve", "parity", "profile", "evict")
+# K3: max|y - plain| / max|plain| and max|state - plain| (absolute), as
+# tests/test_kernels.py holds the Pallas kernel (f32).  In bf16 both sides
+# do the same f32 math on the same bf16 inputs and round y once, so y may
+# differ by one bf16 ulp (2**-8 of |y|); the state is f32 on both sides.
+K3_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (8e-3, 1e-3)}
+K4_TOL = 1e-4            # absolute, h and h_final (f32 in, f32 out)
+LOGIT_REL_TOL = 5e-2     # parity: max|logit diff| / max|logit|, bf16
+# the same in f32 (mamba2-1.3b read 5.5e-5 on the H100: the kernels' f32
+# sums differ from the plain versions' only in order)
+PARITY_F32_TOL = 1e-3
+PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
+          "serve_mamba2", "parity_mamba2", "profile_mamba2",
+          "serve_recurrentgemma", "parity_recurrentgemma",
+          "profile_recurrentgemma", "evict_new")
+# the full-width serving paths: arch, prompt length, launches expected per
+# prefill and per decoded token (batch 8, 4 steps of 8 tokens)
+PATHS = {
+    "yi": ("yi-9b", 512, {"K2": 48}, {"K1": 48}),
+    "mamba2": ("mamba2-1.3b", 1024, {"K3": 48}, {}),
+    "recurrentgemma": ("recurrentgemma-9b", 2560, {"K4": 26, "K2": 12},
+                       {"K1": 12}),
+}
 
 
 def log(**kw):
@@ -154,12 +187,17 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bound = max(flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S) * 1e3
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_kw = {"is_causal": causal}
+        if window:              # the same function: a windowed causal mask
+            i = torch.arange(S, device="cuda")
+            lib_kw = {"attn_mask": (i[None, :] <= i[:, None])
+                      & (i[:, None] - i[None, :] < window)}
         rec.update(
             ms=bench_ms(lambda: flash_attention(q, k, v, **kw), [()]),
             plain_ms=bench_ms(lambda: flash_attention_ref(q, k, v, **kw),
                               [()], reps=5),
             library_ms=bench_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), [()]),
+                qt, kt, vt, enable_gqa=True, **lib_kw), [()]),
             bound_ms=bound,
             bound_by="operations" if flops / PEAK_FLOP_S[dtype]
             > nbytes / PEAK_BYTES_S else "bytes")
@@ -233,6 +271,102 @@ def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
     state.setdefault("k1", {})[tag] = rec
 
 
+def _ssd_flops_bytes(B, S, H, P, N, cs, esz):
+    """Operations the chunked SSD needs (causal pairs only; C.B^T once per
+    batch row and chunk, since B/C are one group) and the bytes it must
+    move (x, y, B, C in the input type; dt, A and the state in f32)."""
+    cs = min(cs, S)
+    pairs = sum(l * (l + 1) // 2 for l in
+                (min(cs, S - c0) for c0 in range(0, S, cs)))
+    flops = 2 * B * pairs * N + 2 * B * H * pairs * P + 4 * B * H * S * P * N
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * esz \
+        + (B * S * H + H + B * H * P * N) * 4
+    return flops, nbytes
+
+
+def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dt_ = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    # the served path's operands: dt = softplus(.) > 0, A = -exp(.) < 0
+    x = randn(B, S, H, P).to(dt_)
+    dt = F.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H) * 0.2)
+    Bm, Cm = ((randn(B, S, N) * 0.3).to(dt_) for _ in range(2))
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
+    ry, rst = ssd_chunked(x, dt, A, Bm, Cm, chunk=cs)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"K3 {tag}: non-finite kernel output")
+    y_rel = ((y.float() - ry.float()).abs().max()
+             / ry.float().abs().max()).item()
+    st_err = (st - rst).abs().max().item()
+    y_tol, st_tol = K3_TOL[dtype]
+    rec = {"case": tag, "shape": [B, S, H, P, N], "chunk": cs,
+           "dtype": dtype, "y_rel_err": y_rel, "state_abs_err": st_err,
+           "max_abs_err": (y.float() - ry.float()).abs().max().item(),
+           "tol": [y_tol, st_tol]}
+    if y_rel > y_tol or st_err > st_tol:
+        raise AssertionError(f"K3 {tag}: y rel err {y_rel} (tol {y_tol}), "
+                             f"state err {st_err} (tol {st_tol})")
+    if time_it:
+        flops, nbytes = _ssd_flops_bytes(B, S, H, P, N, cs, x.element_size())
+        # the function's arithmetic is f32 (no TF32): the f32 peak applies
+        t_ops, t_bytes = flops / PEAK_FLOP_S["float32"], nbytes / PEAK_BYTES_S
+        rec.update(
+            ms=bench_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cs), [()]),
+            plain_ms=bench_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
+                                                  chunk=cs), [()], reps=5),
+            library_ms=None, flops=flops, bytes=nbytes,
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes")
+    log(phase="kernels", kernel="K3 ssd_scan", **rec)
+    state.setdefault("k3", {})[tag] = rec
+
+
+def _rglru_case(state, tag, B, S, W, time_it=False):
+    import torch
+
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # the gates' ranges: a in (0, 1), b small
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device="cuda")) \
+        * 0.98
+    b = torch.randn((B, S, W), generator=g, device="cuda") * 0.1
+    h, hf = rglru_scan(a, b)
+    rh, rhf = rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    err = max((h - rh).abs().max().item(), (hf - rhf).abs().max().item())
+    if not torch.isfinite(h).all() or err > K4_TOL:
+        raise AssertionError(f"K4 {tag}: max abs err {err} (tol {K4_TOL})")
+    rec = {"case": tag, "shape": [B, S, W], "dtype": "float32",
+           "max_abs_err": err, "tol": K4_TOL}
+    if time_it:
+        nbytes = 3 * B * S * W * 4 + B * W * 4
+        flops = 2 * B * S * W
+        t_ops = flops / PEAK_FLOP_S["float32"]
+        t_bytes = nbytes / PEAK_BYTES_S
+        rec.update(
+            ms=bench_ms(lambda: rglru_scan(a, b), [()]),
+            plain_ms=bench_ms(lambda: rglru_scan_ref(a, b), [()], reps=5),
+            library_ms=None, flops=flops, bytes=nbytes,
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes")
+    log(phase="kernels", kernel="K4 rglru_scan", **rec)
+    state.setdefault("k4", {})[tag] = rec
+
+
 def phase_kernels(state):
     import torch
 
@@ -261,6 +395,29 @@ def phase_kernels(state):
     _decode_case(state, "softcap30", 8, 640, 32, 4, 128, 600, "bfloat16",
                  softcap=30.0)
     _decode_case(state, "smoke_f32", 2, 136, 4, 4, 16, 20, "float32")
+    # recurrentgemma-9b's attention: hd 256, 16 q heads over one kv head,
+    # window 2048; prefill of 2560 (the window masks), decode at pos 2600
+    # of a 2048-slot ring (wrapped)
+    _flash_case(state, "hd256_path", 8, 2560, 16, 1, 256, "bfloat16",
+                window=2048, time_it=True)
+    _flash_case(state, "hd256_f32", 2, 600, 16, 1, 256, "float32",
+                window=256)
+    _decode_case(state, "hd256_path", 8, 2048, 16, 1, 256, 2600,
+                 "bfloat16", window=2048, time_it=True)
+    _decode_case(state, "hd256_f32", 8, 2048, 16, 1, 256, 2600, "float32",
+                 window=2048)
+    # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
+    # 256), a ragged S and the smoke shape
+    _ssd_case(state, "path", 8, 1024, 64, 64, 128, 256, "bfloat16",
+              time_it=True)
+    _ssd_case(state, "path_f32", 8, 1024, 64, 64, 128, 256, "float32",
+              time_it=True)
+    _ssd_case(state, "ragged", 2, 1000, 64, 64, 128, 256, "bfloat16")
+    _ssd_case(state, "ragged_f32", 2, 1000, 64, 64, 128, 256, "float32")
+    _ssd_case(state, "smoke_f32", 2, 40, 8, 16, 16, 32, "float32")
+    # K4 at recurrentgemma-9b's prefill shape and a ragged S/W
+    _rglru_case(state, "path", 8, 2560, 4096, time_it=True)
+    _rglru_case(state, "ragged", 3, 77, 300)
 
 
 # ---------------------------------------------------------------------------
@@ -275,40 +432,51 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
-def phase_serve(state):
+def _wrappers():
+    """The kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    return {"K1": decode_attention, "K2": flash_attention, "K3": ssd_scan,
+            "K4": rglru_scan}
+
+
+def _serve(state, key):
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.core import (FunkyRuntime, SliceAllocator, TaskImage,
                                   TaskStatus)
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
 
-    cfg = get_arch("yi-9b")
-    im = TaskImage(name="chip-smoke", kind="serve", arch="yi-9b",
-                   prompt_len=512, global_batch=8, total_steps=4,
+    arch, prompt_len, per_prefill, per_token = PATHS[key]
+    cfg = get_arch(arch)
+    im = TaskImage(name="chip-smoke", kind="serve", arch=arch,
+                   prompt_len=prompt_len, global_batch=8, total_steps=4,
                    tokens_per_step=8, seed=SEED)
     n_tok = im.total_steps * im.tokens_per_step
     rt = FunkyRuntime("node0", SliceAllocator("node0", 1,
                                               mem_cap_bytes=64 << 30,
                                               device="cuda"))
+    wrappers = _wrappers()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     rt.create("serve0", im)
     rt.start("serve0")
     status = rt.wait("serve0", timeout=600)
     wall = time.perf_counter() - t0
-    launches = {"K2": flash_attention.launches,
-                "K1": decode_attention.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     rec = rt.tasks["serve0"]
     if status is not TaskStatus.DONE:
         raise RuntimeError(f"serve task ended {status}: {rec.error!r}")
-    L = cfg.num_layers
-    if launches != {"K2": L, "K1": L * n_tok}:
-        raise AssertionError(f"launch counts {launches}, expected K2={L} "
-                             f"(one prefill) and K1={L * n_tok}")
+    expected = {k: per_prefill.get(k, 0) + n_tok * per_token.get(k, 0)
+                for k in wrappers}
+    if launches != expected:
+        raise AssertionError(f"{arch}: launch counts {launches}, expected "
+                             f"{expected} (one prefill, {n_tok} tokens)")
     last = rec.guest_state.user["last_token"]
     if len(last) != im.global_batch or not all(
             0 <= t < cfg.vocab_size for t in last):
@@ -317,8 +485,8 @@ def phase_serve(state):
     if len(ex) != 2 + n_tok:
         raise AssertionError(f"{len(ex)} EXECUTEs, expected {2 + n_tok}")
     decode_s = ex[2:]
-    state["launches"] = launches
-    log(phase="serve", arch="yi-9b", card=state.get("card"),
+    state.setdefault("launches", {})[key] = launches
+    log(phase="serve", arch=arch, card=state.get("card"),
         batch=im.global_batch, prompt_len=im.prompt_len, new_tokens=n_tok,
         status=status.value, wall_s=wall, init_params_s=ex[0],
         prefill_s=ex[1], decode_token_s_median=statistics.median(decode_s),
@@ -330,51 +498,125 @@ def phase_serve(state):
     _free_cuda()
 
 
+def phase_serve(state):
+    _serve(state, "yi")
+
+
+def phase_serve_mamba2(state):
+    _serve(state, "mamba2")
+
+
+def phase_serve_recurrentgemma(state):
+    _serve(state, "recurrentgemma")
+
+
 # ---------------------------------------------------------------------------
 # 4. kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
-def phase_parity(state):
+def _logit_parity(cfg, S, alt=None):
+    """The kernel path and the plain path (and ``alt``, a plain path that
+    differs from it only in the order of its sums) on one set of weights:
+    prefill, then 4 decode steps of the kernel path's tokens.  Returns the
+    weights, max|logit - plain| / max|plain| per step for each path, and
+    the kernel path's greedy-token agreement with the plain path."""
     import torch
 
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import ShapeConfig
     from repro_torch.models import build_model
     from repro_torch.train import make_batch
 
-    if torch.cuda.memory_allocated() > 1e9:
-        raise RuntimeError("phase 3's weights are still on the card")
-    cfg = get_arch("yi-9b")
-    kern = build_model(cfg)
-    plain = build_model(cfg, prefill_impl="naive", decode_impl="naive")
-    params = kern.init(SEED, device="cuda")
-    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", 512, 8),
+    bundles = {"kernel": build_model(cfg),
+               "plain": build_model(cfg, prefill_impl="naive",
+                                    decode_impl="naive")}
+    if alt is not None:
+        bundles["alt"] = alt
+    params = bundles["kernel"].init(SEED, device="cuda")
+    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
                                       0)["tokens"]).cuda()
+    rels = {k: [] for k in bundles if k != "plain"}
+    agree = []
     with torch.no_grad():
-        lk, ck = kern.prefill_fn(params, {"tokens": toks})
-        lp, cp = plain.prefill_fn(params, {"tokens": toks})
-        rels, agree = [], []
+        res = {k: b.prefill_fn(params, {"tokens": toks})
+               for k, b in bundles.items()}
         for i in range(5):
-            rel = ((lk.float() - lp.float()).abs().max()
-                   / lp.float().abs().max()).item()
-            rels.append(rel)
-            tk, tp = lk.argmax(-1), lp.argmax(-1)
-            agree.append((tk == tp).float().mean().item())
+            lp = res["plain"][0].float()
+            for k in rels:
+                rels[k].append(((res[k][0].float() - lp).abs().max()
+                                / lp.abs().max()).item())
+            tk = res["kernel"][0].argmax(-1)
+            agree.append((tk == lp.argmax(-1)).float().mean().item())
             if not ((0 <= tk) & (tk < cfg.vocab_size)).all():
                 raise AssertionError("token out of range")
             if i == 4:
                 break
-            # both paths decode the kernel path's tokens (same inputs)
+            # every path decodes the kernel path's tokens (same inputs)
             tok = tk.to(torch.int32)
-            lk, ck = kern.decode_fn(params, tok, 512 + i, ck, inplace=True)
-            lp, cp = plain.decode_fn(params, tok, 512 + i, cp, inplace=True)
-    log(phase="parity", arch="yi-9b", dtype=cfg.dtype,
-        logit_rel_err=rels, token_agreement=agree,
-        bound=LOGIT_REL_TOL)
-    if max(rels) > LOGIT_REL_TOL:
-        raise AssertionError(f"kernel vs plain logits differ by {rels}")
-    del ck, cp
-    state["full_params"] = params        # reused by the profile phase
+            res = {k: bundles[k].decode_fn(params, tok, S + i, res[k][1],
+                                           inplace=True)
+                   for k in res}
+    return params, rels, agree
+
+
+def _parity(state, key):
+    """yi-9b: the served bf16 model, kernel path within LOGIT_REL_TOL of
+    the plain path.  mamba2-1.3b and recurrentgemma-9b: in f32, within
+    PARITY_F32_TOL; in bf16, within LOGIT_REL_TOL or twice the plain path's
+    own spread under a reordering of its sums, whichever is larger (at full
+    width these random-weight models amplify one bf16 rounding flip per
+    layer into several percent of the logits; see PERF.md)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    if torch.cuda.memory_allocated() > 1e9:
+        raise RuntimeError("an earlier phase's weights are still on the card")
+    arch, S = PATHS[key][:2]
+    cfg = get_arch(arch)
+    if key != "yi":
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params, rels, agree = _logit_parity(cfg32, S)
+        log(phase="parity", arch=arch, dtype="float32",
+            logit_rel_err=rels["kernel"], token_agreement=agree,
+            bound=PARITY_F32_TOL)
+        if max(rels["kernel"]) > PARITY_F32_TOL:
+            raise AssertionError(f"{arch} f32: kernel vs plain logits "
+                                 f"differ by {rels['kernel']}")
+        del params
+        _free_cuda()
+    alt = None
+    if key == "mamba2":         # the same scan in chunks of 128, not 256
+        alt = build_model(dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=128)), prefill_impl="naive",
+            decode_impl="naive")
+    elif key == "recurrentgemma":   # online-softmax attention, 512-key blocks
+        alt = build_model(cfg, prefill_impl="blockwise", decode_impl="naive",
+                          prefill_chunk=512)
+    params, rels, agree = _logit_parity(cfg, S, alt)
+    bounds = [max(LOGIT_REL_TOL, 2 * r) for r in rels.get("alt", [0.0] * 5)]
+    log(phase="parity", arch=arch, dtype=cfg.dtype,
+        logit_rel_err=rels["kernel"], token_agreement=agree,
+        plain_spread=rels.get("alt"), bound=bounds)
+    if any(r > b for r, b in zip(rels["kernel"], bounds)):
+        raise AssertionError(f"{arch}: kernel vs plain logits differ by "
+                             f"{rels['kernel']} (bounds {bounds})")
+    state["full_params"] = (key, params)     # reused by the profile phase
     _free_cuda()
+
+
+def phase_parity(state):
+    _parity(state, "yi")
+
+
+def phase_parity_mamba2(state):
+    _parity(state, "mamba2")
+
+
+def phase_parity_recurrentgemma(state):
+    _parity(state, "recurrentgemma")
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +644,7 @@ def _trace_summary(prof, wall_s, n):
                     for us, c, k in top[:8]]}
 
 
-def phase_profile(state):
+def _profile(state, key):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -410,12 +652,15 @@ def phase_profile(state):
     from repro_torch.models import build_model
     from repro_torch.train import make_batch
 
-    cfg = get_arch("yi-9b")
+    arch, S = PATHS[key][:2]
+    cfg = get_arch(arch)
     bundle = build_model(cfg)
-    params = state.pop("full_params", None)
-    if params is None:
+    owner, params = state.pop("full_params", (None, None))
+    if owner != key:
+        del params
+        _free_cuda()
         params = bundle.init(SEED, device="cuda")
-    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", 512, 8),
+    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
                                       0)["tokens"]).cuda()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     run = {}
@@ -450,8 +695,8 @@ def phase_profile(state):
         with profile(activities=acts) as prof:
             wall = timed(decode, 4)
         dec = _trace_summary(prof, wall, 4)
-    log(phase="profile", arch="yi-9b", card=state.get("card"), batch=8,
-        prompt_len=512, prefill_warm_s=prefill_s,
+    log(phase="profile", arch=arch, card=state.get("card"), batch=8,
+        prompt_len=S, prefill_warm_s=prefill_s,
         decode_step_warm_s=decode_s, decode_tokens_per_s_warm=8 / decode_s,
         prefill_trace=pre, decode_trace=dec)
     del params
@@ -459,11 +704,23 @@ def phase_profile(state):
     _free_cuda()
 
 
+def phase_profile(state):
+    _profile(state, "yi")
+
+
+def phase_profile_mamba2(state):
+    _profile(state, "mamba2")
+
+
+def phase_profile_recurrentgemma(state):
+    _profile(state, "recurrentgemma")
+
+
 # ---------------------------------------------------------------------------
 # 6. evict/resume on the card
 # ---------------------------------------------------------------------------
 
-def phase_evict(state):
+def _evict(arch, prompt_len):
     import torch
 
     from repro_torch.chaos import FaultPlan, FaultSpec
@@ -474,8 +731,8 @@ def phase_evict(state):
     from repro_torch.serve import generate
     from repro_torch.train import make_batch
 
-    im = TaskImage(name="evict", kind="serve", arch="yi-9b-smoke",
-                   prompt_len=8, global_batch=2, total_steps=10,
+    im = TaskImage(name="evict", kind="serve", arch=arch,
+                   prompt_len=prompt_len, global_batch=2, total_steps=10,
                    tokens_per_step=2, seed=SEED)
 
     def serve(evict_at=None):
@@ -519,23 +776,37 @@ def phase_evict(state):
         tokens_evicted=evicted_tokens, oracle=oracle.tolist(),
         evict_stats={k: v for k, v in stats.items()})
     if evicted_tokens != plain_tokens or plain_tokens != oracle.tolist():
-        raise AssertionError("evict/resume changed the served tokens")
+        raise AssertionError(f"{arch}: evict/resume changed the served "
+                             f"tokens")
+
+
+def phase_evict(state):
+    _evict("yi-9b-smoke", 8)
+
+
+def phase_evict_new(state):
+    _evict("mamba2-1.3b-smoke", 8)
+    # a prompt longer than the smoke window (16): the ring wraps
+    _evict("recurrentgemma-9b-smoke", 24)
 
 
 # ---------------------------------------------------------------------------
 
 def kernel_line(state):
-    """The per-kernel summary line (main-path launches from phase 3)."""
+    """The per-kernel summary line: each kernel's numbers at its path's
+    shape (phase 2) and its launches on that path's served run."""
     rows = []
-    for key, name, kfile, line in (
-            ("k2", "flash_attention", "flash_attention", 95),
-            ("k1", "decode_attention", "decode_attention", 83)):
+    for key, name, kfile, line, path in (
+            ("k1", "decode_attention", "decode_attention", 83, "yi"),
+            ("k2", "flash_attention", "flash_attention", 95, "yi"),
+            ("k3", "ssd_scan", "ssd_scan", 88, "mamba2"),
+            ("k4", "rglru_scan", "rglru_scan", 59, "recurrentgemma")):
         r = state[key]["path"]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{kfile}/kernel.py:{line}",
-            "launches": state["launches"]["K2" if key == "k2" else "K1"],
+            "launches": state["launches"][path][key.upper()],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -62,9 +62,11 @@ class ServeTask(GuestTask):
     """Batched greedy decoding service; one step() = tokens_per_step tokens.
 
     Programs: ``init_params`` (weights drawn on the device from
-    ``image.seed``), ``prefill`` (K2 through ``lm_prefill``) and ``decode``
-    (K1 through ``lm_decode``).  ``decode`` writes the KV cache in place, so
-    its EXECUTEs donate the buffers they update."""
+    ``image.seed``), ``prefill`` (``lm_prefill``: K2 for attention layers,
+    K3 for Mamba2 layers, K4 for RG-LRU layers) and ``decode``
+    (``lm_decode``: K1 for attention layers).  ``decode`` writes the caches
+    (KV ring, SSM and RG-LRU states, conv windows) in place, so its
+    EXECUTEs donate the buffers they update."""
 
     PROGRAMS = ("init_params", "prefill", "decode")
 

@@ -22,6 +22,11 @@
 //    share a row with warp shuffles; masked scores contribute exactly 0.
 //  * ragged edges (Sq or Skv not a multiple of the tile) are masked here;
 //    there is no Sq % bq requirement.
+//  * head dims 16-256.  At hd 256 (recurrentgemma-9b) the bf16 tile takes
+//    2 * ((64 + 64) * 264 + 256 * 72) B = 104 KB of shared memory and the
+//    f32 path 145 KB; the bf16 path then reads its q fragments from shared
+//    memory at each k-step, so the 128 output accumulators keep their
+//    registers.
 // bf16 (the serving path): tensor cores through mma.sync m16n8k16, bf16
 //    in, f32 accumulate.  Each warp owns 16 query rows; q fragments stay in
 //    registers, k and a transposed v tile of 64 keys are staged in shared
@@ -274,14 +279,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 : zero;
   }
   __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
+  // q fragments: in registers up to hd 128; at hd 256 they would take 64
+  // registers beside the 128 of the output accumulator, so they are read
+  // from the (resident) q tile at each k-step instead.
+  constexpr bool QREG = HD <= 128;
+  uint32_t qf[QREG ? KD : 1][4];
+  auto q_frag = [&](int kk, uint32_t a[4]) {
     const bf16* p = q_s + (warp * 16 + g) * RS + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * RS);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * RS + 8);
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * RS);
+    a[2] = ld32(p + 8);
+    a[3] = ld32(p + 8 * RS + 8);
+  };
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) q_frag(kk, qf[kk]);
   }
 
   float acc[ND][4];
@@ -323,11 +335,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        q_frag(kk, qa);
+      }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const bf16* p = k_s + (nb * 8 + g) * RS + kk * 16 + 2 * t;
         const uint32_t bf[2] = {ld32(p), ld32(p + 8)};
-        mma_16816(s[nb], qf[kk], bf);
+        mma_16816(s[nb], qa, bf);
       }
     }
 
@@ -460,6 +479,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return (int)launch_mma<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 64: return (int)launch_mma<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 128: return (int)launch_mma<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
+      case 256: return (int)launch_mma<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -469,6 +489,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return (int)launch_f32<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 64: return (int)launch_f32<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 128: return (int)launch_f32<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
+      case 256: return (int)launch_f32<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

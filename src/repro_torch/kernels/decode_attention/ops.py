@@ -19,17 +19,8 @@ MAX_GROUP = 16      # csrc/decode_attention.cu: GMAX
 _ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P)
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos, kv_pos: torch.Tensor, *, window: int = 0,
-                     softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, 1, Hq, hd); k/v: (B, cap, Hkv, hd); kv_pos: (cap,) int32
-    absolute slot positions (2**30 = unwritten); pos: int or one-element
-    int tensor, the query's position.  Returns (B, 1, Hq, hd)."""
-    if not isinstance(pos, torch.Tensor):
-        pos = torch.tensor([int(pos)], dtype=torch.int32, device=q.device)
-    if on_cpu(q, k, v, kv_pos, pos):
-        return decode_attention_ref(q, k, v, pos, kv_pos, window=window,
-                                    softcap=softcap)
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises on q/k/v shapes the kernel does not take."""
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -42,6 +33,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: head dim {hd} (allowed "
                          f"{HEAD_DIMS}) or group {Hq // Hkv} (max "
                          f"{MAX_GROUP}) not supported")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos, kv_pos: torch.Tensor, *, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, 1, Hq, hd); k/v: (B, cap, Hkv, hd); kv_pos: (cap,) int32
+    absolute slot positions (2**30 = unwritten); pos: int or one-element
+    int tensor, the query's position.  Returns (B, 1, Hq, hd)."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor([int(pos)], dtype=torch.int32, device=q.device)
+    if on_cpu(q, k, v, kv_pos, pos):
+        return decode_attention_ref(q, k, v, pos, kv_pos, window=window,
+                                    softcap=softcap)
+    check_shapes(q, k, v)
+    B, _, Hq, hd = q.shape
+    _, cap, Hkv, _ = k.shape
     if kv_pos.shape != (cap,) or kv_pos.dtype != torch.int32 \
             or not kv_pos.is_contiguous():
         raise ValueError(f"decode_attention: kv_pos must be contiguous "

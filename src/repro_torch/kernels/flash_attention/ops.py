@@ -15,18 +15,12 @@ from repro_torch.kernels.common import (F, I, P, check_operands, on_cpu,
                                         raise_on_error, stream_of)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _ARGTYPES = (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
-    Positions are contiguous from 0 for both q and kv."""
-    if on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises on shapes the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -37,6 +31,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"match k/v {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
+    Positions are contiguous from 0 for both q and kv."""
+    if on_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    check_shapes(q, k, v)
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
     code = check_operands("flash_attention", {"q": q, "k": k, "v": v},
                           q.dtype)
     out = torch.empty_like(q)

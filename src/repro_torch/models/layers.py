@@ -1,4 +1,5 @@
-"""Common layers: norms, rotary embeddings, the gated MLP, embeddings.
+"""Common layers: norms, rotary embeddings, the MLPs, embeddings, and the
+causal depthwise convolution of the SSM and RG-LRU blocks.
 
 Functional, like the reference: ``init_*`` builds a dict of tensors on an
 explicit device from an explicit ``torch.Generator``; ``*_fwd`` applies it.
@@ -88,21 +89,36 @@ def rope_fwd(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # MLP
 # ---------------------------------------------------------------------------
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's own
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def init_mlp(cfg: ModelConfig, d_in: int, d_ff: int, device,
              gen: Optional[torch.Generator], count: int = 0) -> dict:
-    if cfg.mlp_kind != "silu_glu":
-        raise NotImplementedError(f"mlp {cfg.mlp_kind!r} is not ported yet")
+    """silu_glu | geglu (gated, with ``w_gate``) | gelu (plain)."""
+    if cfg.mlp_kind not in ("silu_glu", "geglu", "gelu"):
+        raise ValueError(f"unknown mlp kind {cfg.mlp_kind!r}")
     dt = cdtype(cfg)
-    return {
+    p = {
         "w_up": normal((d_in, d_ff), d_in ** -0.5, dt, device, gen, count),
         "w_down": normal((d_ff, d_in), d_ff ** -0.5, dt, device, gen, count),
-        "w_gate": normal((d_in, d_ff), d_in ** -0.5, dt, device, gen, count),
     }
+    if cfg.mlp_kind != "gelu":
+        p["w_gate"] = normal((d_in, d_ff), d_in ** -0.5, dt, device, gen,
+                             count)
+    return p
 
 
 def mlp_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     up = x @ p["w_up"]
-    h = F.silu(x @ p["w_gate"]) * up
+    if cfg.mlp_kind == "silu_glu":
+        h = F.silu(x @ p["w_gate"]) * up
+    elif cfg.mlp_kind == "geglu":
+        h = gelu(x @ p["w_gate"]) * up
+    else:
+        h = gelu(up)
     return h @ p["w_down"]
 
 
@@ -129,3 +145,32 @@ def lm_head_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (SSM / RG-LRU input convolutions)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor):
+    """x: (B, S, C), w: (K, C).  Returns (y, state): state is the last K-1
+    inputs, left zero padding included when S < K-1, for decode."""
+    k = w.shape[0]
+    pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + S] * w[i]
+    # a copy: a view would keep the whole padded input alive in the cache
+    return y, xp[:, S:].clone()
+
+
+def causal_conv1d_step(x: torch.Tensor, w: torch.Tensor,
+                       state: torch.Tensor) -> torch.Tensor:
+    """One-token update. x: (B, C), state: (B, K-1, C).  Returns y and
+    shifts the new input into ``state`` in place."""
+    xp = torch.cat([state.to(x.dtype), x[:, None, :]], dim=1)    # (B, K, C)
+    y = (xp * w.to(x.dtype)).sum(dim=1)
+    state.copy_(xp[:, 1:])
+    return y

@@ -1,4 +1,5 @@
-"""Model zoo: one ``build_model`` entry point (dense family so far).
+"""Model zoo: one ``build_model`` entry point (dense, ssm and hybrid
+families so far).
 
 ``ModelBundle`` packages the functional API the rest of the port uses:
 
@@ -7,8 +8,10 @@
     decode_fn(params, tok, pos, caches, inplace=False) -> (logits, caches)
     cache_specs(batch, max_len)              -> caches as meta tensors
 
-Attention defaults to the hand-written kernels (``"kernel"``); the plain
-PyTorch paths (``"naive"``, ``"blockwise"``) are what they are held against.
+Prefill and decode default to the hand-written kernels (``"kernel"``: K2
+for attention prefill, K3 for the SSD scan, K4 for the RG-LRU scan, K1 for
+attention decode); the plain PyTorch paths (``"naive"``, ``"blockwise"``)
+are what they are held against.
 """
 
 from __future__ import annotations

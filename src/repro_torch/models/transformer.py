@@ -1,11 +1,18 @@
-"""Decoder-only LM composer, dense family.
+"""Decoder-only LM composer: the dense, ssm and hybrid families.
 
 As in the reference, an architecture is a list of **segments**, each
 ``count`` repetitions of a tuple of block specs, with every segment's
-parameters and caches stacked along a leading ``count`` axis.  A Python
-loop over that axis replaces ``lax.scan``; per-layer parameters and caches
-are views into the stacked tensors, so decode's in-place cache writes land
-in the stacked cache.
+parameters and caches stacked along a leading ``count`` axis:
+
+    yi-9b:            [48 x ("attn+mlp",)]
+    mamba2:           [48 x ("ssm",)]
+    recurrentgemma:   [12 x ("rec+mlp", "rec+mlp", "attn+mlp"),
+                       1 x ("rec+mlp", "rec+mlp")]
+
+A Python loop over that axis replaces ``lax.scan``; per-layer parameters
+and caches are views into the stacked tensors, so decode's in-place cache
+writes (attention ring, SSM state, RG-LRU state, conv windows) land in the
+stacked cache.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
                                        init_norm, lm_head_fwd, mlp_fwd,
                                        norm_fwd)
@@ -26,8 +34,8 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class BlockSpec:
-    mixer: str            # attn (the only mixer ported so far)
-    ffn: str = "mlp"      # mlp
+    mixer: str            # attn | rec | ssm
+    ffn: str = "mlp"      # mlp | none
     window: int = 0       # sliding-window for attn mixers (0 = full)
     d_ff: int = 0         # mlp hidden size
 
@@ -39,10 +47,24 @@ class Segment:
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return [Segment(L, (BlockSpec("ssm", "none"),))]
+    if cfg.family == "hybrid":
+        pat = tuple(
+            BlockSpec("rec", "mlp", d_ff=cfg.d_ff) if c == "r"
+            else BlockSpec("attn", "mlp", window=cfg.sliding_window,
+                           d_ff=cfg.d_ff)
+            for c in cfg.rec.block_pattern)
+        reps, rem = divmod(L, len(pat))
+        segs = [Segment(reps, pat)]
+        if rem:
+            segs.append(Segment(1, pat[:rem]))
+        return segs
     if cfg.family != "dense" or cfg.moe.enabled:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    return [Segment(cfg.num_layers, (BlockSpec(
+            f"family {cfg.family!r} is not ported yet (dense, ssm, hybrid)")
+    return [Segment(L, (BlockSpec(
         "attn", "mlp", window=cfg.sliding_window, d_ff=cfg.d_ff),))]
 
 
@@ -58,32 +80,72 @@ def _layer(tree, i: int):
 def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
                count: int) -> dict:
     """Parameters of ``count`` stacked blocks of one spec."""
-    return {
-        "norm1": init_norm(cfg, cfg.d_model, device, count),
-        "attn": attn.init_gqa(cfg, device, gen, count),
-        "norm2": init_norm(cfg, cfg.d_model, device, count),
-        "mlp": init_mlp(cfg, cfg.d_model, spec.d_ff, device, gen, count),
-    }
+    p = {"norm1": init_norm(cfg, cfg.d_model, device, count)}
+    if spec.mixer == "attn":
+        p["attn"] = attn.init_gqa(cfg, device, gen, count)
+    elif spec.mixer == "rec":
+        p["rec"] = rglru.init_rec_block(cfg, device, gen, count)
+    elif spec.mixer == "ssm":
+        p["ssm"] = ssm.init_ssm_block(cfg, device, gen, count)
+    else:
+        raise ValueError(f"mixer {spec.mixer!r} is not ported yet")
+    if spec.ffn == "mlp":
+        p["norm2"] = init_norm(cfg, cfg.d_model, device, count)
+        p["mlp"] = init_mlp(cfg, cfg.d_model, spec.d_ff, device, gen, count)
+    elif spec.ffn != "none":
+        raise ValueError(f"ffn {spec.ffn!r} is not ported yet")
+    return p
 
 
 def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
                 *, mode: str, cache, pos, prefill_impl: str,
                 decode_impl: str, prefill_chunk: int, cache_margin: int):
-    """mode: prefill | decode. Returns (x, cache)."""
-    h = norm_fwd(cfg, p["norm1"], x)
-    if mode == "prefill":
-        mix, new_cache = attn.gqa_prefill(
-            cfg, p["attn"], h, window=spec.window, impl=prefill_impl,
-            chunk=prefill_chunk, margin=cache_margin)
-    elif mode == "decode":
-        mix, new_cache = attn.gqa_decode(
-            cfg, p["attn"], h, pos, cache, window=spec.window,
-            impl=decode_impl)
-    else:
+    """mode: prefill | decode. Returns (x, cache).  ``prefill_impl``
+    "kernel" puts every mixer's prefill on its CUDA kernel (K2, K3, K4);
+    ``decode_impl`` "kernel" puts attention decode on K1 (the SSM and
+    RG-LRU steps are plain tensor code)."""
+    if mode not in ("prefill", "decode"):
         raise ValueError(f"mode {mode!r} is not ported yet")
+    h = norm_fwd(cfg, p["norm1"], x)
+    if spec.mixer == "attn":
+        if mode == "prefill":
+            mix, new_cache = attn.gqa_prefill(
+                cfg, p["attn"], h, window=spec.window, impl=prefill_impl,
+                chunk=prefill_chunk, margin=cache_margin)
+        else:
+            mix, new_cache = attn.gqa_decode(
+                cfg, p["attn"], h, pos, cache, window=spec.window,
+                impl=decode_impl)
+    elif spec.mixer == "rec":
+        if mode == "prefill":
+            mix, new_cache = rglru.rec_block_prefill(cfg, p["rec"], h,
+                                                     impl=prefill_impl)
+        else:
+            mix, new_cache = rglru.rec_block_step(cfg, p["rec"], h, cache)
+    elif spec.mixer == "ssm":
+        if mode == "prefill":
+            mix, new_cache = ssm.ssm_block_prefill(cfg, p["ssm"], h,
+                                                   impl=prefill_impl)
+        else:
+            mix, new_cache = ssm.ssm_block_step(cfg, p["ssm"], h, cache)
+    else:
+        raise ValueError(f"mixer {spec.mixer!r} is not ported yet")
     x = x + mix
-    x = x + mlp_fwd(cfg, p["mlp"], norm_fwd(cfg, p["norm2"], x))
+    if spec.ffn == "mlp":
+        x = x + mlp_fwd(cfg, p["mlp"], norm_fwd(cfg, p["norm2"], x))
     return x, new_cache
+
+
+def block_cache_spec(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     max_len: int, count: int = 0):
+    if spec.mixer == "attn":
+        return attn.gqa_cache_spec(cfg, batch, max_len, window=spec.window,
+                                   count=count)
+    if spec.mixer == "rec":
+        return rglru.rec_cache_spec(cfg, batch, count)
+    if spec.mixer == "ssm":
+        return ssm.ssm_cache_spec(cfg, batch, count)
+    raise ValueError(f"mixer {spec.mixer!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +181,7 @@ def segment_apply(cfg: ModelConfig, p_stacked: dict, seg: Segment,
 
 def segment_cache_specs(cfg: ModelConfig, seg: Segment, batch: int,
                         max_len: int):
-    return tuple(attn.gqa_cache_spec(cfg, batch, max_len,
-                                     window=spec.window, count=seg.count)
+    return tuple(block_cache_spec(cfg, spec, batch, max_len, seg.count)
                  for spec in seg.blocks)
 
 

@@ -13,37 +13,30 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import cdtype
 from repro_torch.tree import tree_map
 
 
-def _is_float(a: np.ndarray) -> bool:
-    # bfloat16 numpy arrays (ml_dtypes) have kind "V"
-    return a.dtype.kind == "f" or a.dtype.name == "bfloat16"
-
-
-def _tensor(x, dtype=None) -> torch.Tensor:
+def _tensor(x) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same dtype (bfloat16 numpy
+    arrays, from ml_dtypes, have kind "V" and go through float32, which
+    holds their values exactly)."""
     a = np.asarray(x)
-    if _is_float(a):
-        # through float32, which holds bfloat16 values exactly
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(dtype=dtype or torch.float32)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            torch.bfloat16)
     return torch.from_numpy(np.array(a))
 
 
-def params_from_jax(cfg: ModelConfig, np_tree: Any) -> Any:
+def params_from_jax(np_tree: Any) -> Any:
     """The reference's parameter pytree (numpy leaves) as the port's
-    parameters: CPU tensors in the config's dtype."""
-    return tree_map(lambda x: _tensor(x, cdtype(cfg)), np_tree)
+    parameters: CPU tensors, each leaf in its own dtype (a bf16 config
+    keeps its float32 leaves, e.g. Mamba2's ``A_log``, in float32)."""
+    return tree_map(_tensor, np_tree)
 
 
-def caches_from_jax(np_tree: Any, dtype: torch.dtype) -> Any:
-    """The reference's cache pytree (k/v float, kv_pos int32) as CPU
-    tensors."""
-    return tree_map(
-        lambda x: _tensor(x, dtype if _is_float(np.asarray(x)) else None),
-        np_tree)
+# the reference's caches convert the same way: k/v stay in the config's
+# dtype, SSM/RG-LRU states in float32, ``kv_pos`` in int32
+caches_from_jax = params_from_jax
 
 
 def to_numpy(tree: Any) -> Any:

@@ -45,7 +45,7 @@ def _np(x):
 
 def _gqa_params(jcfg, tcfg, seed=0):
     jp = jattn.init_gqa(jcfg, jax.random.PRNGKey(seed))
-    return jp, params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp))
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +81,7 @@ def test_rope_matches_reference(dtype, theta, pct):
 def test_mlp_matches_reference(dtype):
     jcfg, tcfg = _cfgs(dtype)
     jp = jlayers.init_mlp(jcfg, jax.random.PRNGKey(3), 64, 128)
-    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
     (x,) = _normal(4, (2, 3, 64))
     jout = jlayers.mlp_fwd(jcfg, jp, jnp.asarray(x).astype(dtype))
     tout = tlayers.mlp_fwd(tcfg, tp,
@@ -92,7 +92,7 @@ def test_mlp_matches_reference(dtype):
 def test_embed_and_head_match_reference():
     jcfg, tcfg = _cfgs()
     jp = jlayers.init_embed(jcfg, jax.random.PRNGKey(5))
-    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
     toks = np.array([[1, 7, 511], [0, 3, 3]], np.int32)
     jh = jlayers.embed_fwd(jcfg, jp, jnp.asarray(toks))
     th = tlayers.embed_fwd(tcfg, tp, torch.from_numpy(toks))

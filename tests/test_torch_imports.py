@@ -123,3 +123,15 @@ def test_kernel_library_path_tracks_the_sources():
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert (build.CSRC / "flash_attention.cu").exists()
     assert (build.CSRC / "decode_attention.cu").exists()
+
+
+def test_every_kernel_source_is_built():
+    """K1-K4 each build from their own source (one nvcc each)."""
+    from repro_torch.kernels import build
+
+    assert build.SOURCES == ("flash_attention", "decode_attention",
+                             "ssd_scan", "rglru_scan")
+    paths = {build.library_path(n) for n in build.SOURCES}
+    assert len(paths) == 4
+    for n in build.SOURCES:
+        assert (build.CSRC / f"{n}.cu").exists()

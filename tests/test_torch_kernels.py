@@ -171,6 +171,25 @@ def test_wrappers_refuse_devices_without_a_kernel():
                          torch.zeros(8, dtype=torch.int32, device=meta))
 
 
+def test_wrappers_accept_head_dim_256():
+    """recurrentgemma-9b's attention: hd 256, 16 q heads over one kv head.
+    K2's wrapper refused hd 256 before the kernel gained it; K1 had it."""
+    from repro_torch.kernels.decode_attention.ops import \
+        check_shapes as da_check
+    from repro_torch.kernels.flash_attention.ops import \
+        check_shapes as fa_check
+
+    q = torch.empty((2, 8, 16, 256))
+    k = torch.empty((2, 8, 1, 256))
+    fa_check(q, k, k)
+    da_check(q[:, :1], k, k)
+    with pytest.raises(ValueError):
+        fa_check(torch.empty((2, 8, 16, 512)), torch.empty((2, 8, 1, 512)),
+                 torch.empty((2, 8, 1, 512)))
+    with pytest.raises(ValueError):           # group 32 > 16
+        da_check(torch.empty((2, 1, 32, 256)), k, k)
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -213,5 +232,24 @@ def test_decode_kernel_matches_plain_on_card(cuda, dtype, cap, pos, window):
     out = decode_attention(q, k, v, pos, kv_pos, window=window)
     ref = decode_attention_ref(q, k, v, pos, kv_pos, window=window)
     assert decode_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_head_dim_256_match_plain_on_card(cuda, dtype):
+    """recurrentgemma-9b's shapes, scaled down: hd 256, group 16, window."""
+    q, k, v = (_t(x, dtype).to(cuda) for x in _normal(
+        11, (1, 200, 16, 256), (1, 200, 1, 256), (1, 200, 1, 256)))
+    out = flash_attention(q, k, v, causal=True, window=64)
+    ref = flash_attention_ref(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    kv_pos = torch.from_numpy(_ring_kv_pos(128, 300)).to(cuda)
+    qd = q[:, :1].contiguous()
+    kd, vd = k[:, :128].contiguous(), v[:, :128].contiguous()
+    out = decode_attention(qd, kd, vd, 300, kv_pos, window=100)
+    ref = decode_attention_ref(qd, kd, vd, 300, kv_pos, window=100)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                atol=TOL[dtype])

@@ -48,7 +48,7 @@ def _shared(dtype):
         jb = jbuild(jcfg)
         jp = jb.init(jax.random.PRNGKey(0))
         tb = build_model(tcfg)
-        tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+        tp = params_from_jax(jax.tree.map(np.asarray, jp))
         _SHARED[dtype] = (jb, jp, tb, tp)
     return _SHARED[dtype]
 
@@ -131,7 +131,7 @@ def test_caches_convert_both_ways():
     tl, tc_own = tb.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
     tok = jnp.argmax(jl, -1).astype(jnp.int32)
     jl2, _ = jb.decode_fn(jp, tok, jnp.int32(16), jc)
-    tc = caches_from_jax(jax.tree.map(np.asarray, jc), torch.float32)
+    tc = caches_from_jax(jax.tree.map(np.asarray, jc))
     tl2, _ = tb.decode_fn(tp, torch.from_numpy(np.array(tok)), 16, tc)
     assert np.max(np.abs(_f(jl2) - to_numpy(tl2))) < F32_TOL
     jc_from_port = jax.tree.map(jnp.asarray, to_numpy(tc_own))
