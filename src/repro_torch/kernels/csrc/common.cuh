@@ -1,5 +1,7 @@
-// Helpers shared by the attention kernels: element conversion and 16-byte
-// vector loads of 8 consecutive elements (bf16 or f32) into float registers.
+// Helpers shared by the attention kernels: element conversion, 16-byte
+// vector loads of 8 consecutive elements (bf16 or f32) into float registers,
+// warp reductions, and the sm_80+ building blocks of the tensor-core paths
+// (cp.async copies, ldmatrix, mma.sync m16n8k16 on bf16).
 #pragma once
 
 #include <cstdint>
@@ -50,6 +52,67 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; with zero = true no global byte
+// is read and the 16 shared bytes are zero-filled (src-size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool zero) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(zero ? 0 : 16)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two 8x8 b16 matrices: lanes 0-7 address the rows of the first, lanes 8-15
+// those of the second; lane l receives (row l/4, cols 2(l%4), +1) of each
+// (with .trans: (rows 2(l%4), +1, col l/4))
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+// four 8x8 b16 matrices, lanes 8m..8m+7 addressing the rows of matrix m
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// D += A.B, m16n8k16, bf16 in, f32 accumulate.  Fragment layouts (PTX ISA)
+// with g = lane / 4, t = lane % 4: A holds (row g | g+8, cols 2t..2t+1 |
+// +8), B (k rows 2t..2t+1 | +8, col g), C/D (row g | g+8, cols 2t..2t+1).
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 }  // namespace repro

@@ -3,6 +3,10 @@
 On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
 the plain version ``decode_attention_ref``.  ``decode_attention.launches``
 counts kernel launches (not plain-version calls).
+
+The kernel splits each (lane, kv head)'s cache across the CTAs of one
+thread-block cluster and merges their partial softmaxes in the same launch;
+``split_plan`` chooses the split here, in Python, so the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,37 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16      # csrc/decode_attention.cu: GMAX
-_ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P)
+MAX_CLUSTER = 16    # csrc/decode_attention.cu: MAX_CLUSTER (non-portable > 8)
+CHUNK_GRANULE = 64  # csrc/decode_attention.cu: CHUNK_GRANULE (whole blocks)
+MAX_CHUNK = 32768   # csrc/decode_attention.cu: MAX_CHUNK (one keep bit a slot)
+_ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P)
+_sm_counts: dict = {}
+
+
+def split_plan(B: int, Hkv: int, cap: int, sm_count: int):
+    """(chunk, cluster): CTA r of the cluster of one (lane, kv head) takes
+    cache slots [r * chunk, (r + 1) * chunk).  The cluster is as large as
+    it takes for the B * Hkv clusters to cover ``sm_count`` SMs, but at
+    most ``MAX_CLUSTER`` CTAs and at least ``CHUNK_GRANULE`` slots each;
+    every slot lies in exactly one CTA's range."""
+    want = -(-sm_count // (B * Hkv))
+    cluster = max(1, min(MAX_CLUSTER, want, -(-cap // CHUNK_GRANULE)))
+    chunk = -(-cap // cluster)
+    chunk = -(-chunk // CHUNK_GRANULE) * CHUNK_GRANULE
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"decode_attention: cap {cap} needs {chunk} slots "
+                         f"per CTA (max {MAX_CHUNK})")
+    return chunk, -(-cap // chunk)
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -58,12 +92,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: pos must be one int32 value")
     code = check_operands("decode_attention", {"q": q, "k": k, "v": v},
                           q.dtype)
+    chunk, cluster = split_plan(B, Hkv, cap, sm_count(q.device))
     out = torch.empty_like(q)
     fn = build.load("decode_attention", "decode_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
                 pos.data_ptr(), out.data_ptr(), code, B, cap, Hq, Hkv, hd,
-                int(window), float(softcap), stream_of(q))
+                int(window), float(softcap), chunk, cluster, stream_of(q))
     raise_on_error("decode_attention", rc)
     decode_attention.launches += 1
     return out

@@ -253,3 +253,51 @@ def test_kernels_at_head_dim_256_match_plain_on_card(cuda, dtype):
     ref = decode_attention_ref(qd, kd, vd, 300, kv_pos, window=100)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                atol=TOL[dtype])
+
+
+# K1 split across a cluster: (B, cap, Hq, Hkv, hd, pos, window)
+K1_SPLIT_EDGES = {
+    "unwritten_splits": (2, 2048, 16, 1, 256, 20, 0),
+    "window_cuts_splits": (2, 2048, 16, 1, 256, 2600, 300),
+    "wrapped_ring": (2, 640, 32, 4, 128, 700, 0),
+    "ragged_cap": (2, 200, 8, 8, 64, 199, 0),
+    "one_lane": (1, 2048, 16, 1, 256, 2600, 2048),
+    "g1_hd16": (3, 136, 4, 4, 16, 100, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(K1_SPLIT_EDGES))
+def test_decode_kernel_split_edges_on_card(cuda, dtype, case):
+    B, cap, Hq, Hkv, hd, pos, window = K1_SPLIT_EDGES[case]
+    q, k, v = (_t(x, dtype).to(cuda) for x in _normal(
+        cap + pos, (B, 1, Hq, hd), (B, cap, Hkv, hd), (B, cap, Hkv, hd)))
+    kv_pos = torch.from_numpy(_ring_kv_pos(cap, pos)).to(cuda)
+    out = decode_attention(q, k, v, pos, kv_pos, window=window)
+    ref = decode_attention_ref(q, k, v, pos, kv_pos, window=window)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    assert torch.equal(out, decode_attention(q, k, v, pos, kv_pos,
+                                             window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("S,window", [(1, 0), (127, 0), (129, 0), (200, 0),
+                                      (200, 64), (256, 128)])
+def test_flash_kernel_tile_edges_on_card(cuda, hd, S, window):
+    """Sq one row, one short of and one past a 64/128-row tile; windows that
+    end on a 64-key tile boundary; every head dim route (hd 16 mma.sync,
+    64/128 one consumer warpgroup, 256 two).  Two calls give the same bits."""
+    q, k, v = (_t(x, "bfloat16").to(cuda) for x in _normal(
+        S + hd, (2, S, 16, hd), (2, S, 2, hd), (2, S, 2, hd)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL["bfloat16"])
+    assert torch.equal(out, flash_attention(q, k, v, causal=True,
+                                            window=window))
