@@ -124,10 +124,11 @@ def bench_ms(fn, arg_sets, reps=20, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, arg_sets, reps=10):
+def device_ms(fn, arg_sets, reps=10, expect=None):
     """Device time of one call: the CUDA kernels' time in a
     ``torch.profiler`` trace of ``reps`` rounds over ``arg_sets``, without
-    the host dispatch that CUDA events over back-to-back calls include."""
+    the host dispatch that CUDA events over back-to-back calls include.
+    With ``expect``, the trace must show a kernel of that name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -141,9 +142,13 @@ def device_ms(fn, arg_sets, reps=10):
                 for a in arg_sets:
                     fn(*a)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events)
         if us > 0:
+            if expect and not any(expect in e.key for e in events):
+                raise AssertionError(f"no {expect} in the trace: "
+                                     f"{[e.key[:60] for e in events]}")
             return us / 1e3 / (reps * len(arg_sets))
     raise RuntimeError("three traces recorded no device time")
 
@@ -358,11 +363,34 @@ def _ssd_flops_bytes(B, S, H, P, N, cs, esz):
     return flops, nbytes
 
 
+def _ssd_other_route(x, dt, A, Bm, Cm, cs):
+    """K3 at bf16 on the CUDA-core route (what the bf16 path ran before the
+    mma route), called through the C entry point: a yardstick of the old
+    design on the same inputs.  It bypasses the wrapper and its count."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import raise_on_error, stream_of
+    from repro_torch.kernels.ssd_scan import ops
+
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    st = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    fn = build.load("ssd_scan", "ssd_scan_fwd", ops._ARGTYPES)
+    raise_on_error("ssd_scan", fn(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), st.data_ptr(),
+        build.DTYPE_CODES["bfloat16"], ops.ROUTES["cuda_core"], Bsz, S, H, P,
+        N, min(cs, S), stream_of(x)))
+    return y, st
+
+
 def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import route, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -386,7 +414,8 @@ def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
     st_err = (st - rst).abs().max().item()
     y_tol, st_tol = K3_TOL[dtype]
     rec = {"case": tag, "shape": [B, S, H, P, N], "chunk": cs,
-           "dtype": dtype, "y_rel_err": y_rel, "state_abs_err": st_err,
+           "dtype": dtype, "route": route(dt_, P, N), "y_rel_err": y_rel,
+           "state_abs_err": st_err,
            "max_abs_err": (y.float() - ry.float()).abs().max().item(),
            "tol": [y_tol, st_tol]}
     if y_rel > y_tol or st_err > st_tol:
@@ -396,17 +425,29 @@ def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
         rec["bitwise_repeat"] = check_bitwise(
             f"K3 {tag}", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cs))
         flops, nbytes = _ssd_flops_bytes(B, S, H, P, N, cs, x.element_size())
-        # the function's arithmetic is f32 (no TF32): the f32 peak applies
-        t_ops, t_bytes = flops / PEAK_FLOP_S["float32"], nbytes / PEAK_BYTES_S
+        # bf16 takes the mma route, on tensor cores: the bf16 peak applies.
+        # f32 runs on the CUDA cores (no TF32): the f32 peak applies.
+        t_ops, t_bytes = flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S
+        symbol = {"mma": "ssd_scan_mma_kernel",
+                  "cuda_core": "ssd_scan_kernel"}[rec["route"]]
         rec.update(
             ms=bench_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cs), [()]),
             device_ms=device_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cs),
-                                [()]),
+                                [()], expect=symbol),
             plain_ms=bench_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
                                                   chunk=cs), [()], reps=5),
             library_ms=None, flops=flops, bytes=nbytes,
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes")
+        if rec["route"] == "mma":
+            # the CUDA-core route on the same bf16 inputs, same gates
+            oy, ost = _ssd_other_route(x, dt, A, Bm, Cm, cs)
+            rec["cuda_core_y_rel_err"] = ((oy.float() - ry.float()).abs()
+                                          .max() / ry.float().abs().max()
+                                          ).item()
+            rec["cuda_core_device_ms"] = device_ms(
+                lambda: _ssd_other_route(x, dt, A, Bm, Cm, cs), [()],
+                expect="ssd_scan_kernel")
     log(phase="kernels", kernel="K3 ssd_scan", **rec)
     state.setdefault("k3", {})[tag] = rec
 
@@ -508,13 +549,17 @@ def phase_kernels(state):
     _decode_case(state, "hd256_b1", 1, 2048, 16, 1, 256, 2600, "bfloat16",
                  window=2048, time_it=True)
     # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
-    # 256), a ragged S and the smoke shape
+    # 256; bf16 takes the mma route, f32 the CUDA cores), a ragged S, a
+    # chunk that is not a multiple of the mma route's 64-row block, and the
+    # smoke shape
     _ssd_case(state, "path", 8, 1024, 64, 64, 128, 256, "bfloat16",
               time_it=True)
     _ssd_case(state, "path_f32", 8, 1024, 64, 64, 128, 256, "float32",
               time_it=True)
     _ssd_case(state, "ragged", 2, 1000, 64, 64, 128, 256, "bfloat16")
     _ssd_case(state, "ragged_f32", 2, 1000, 64, 64, 128, 256, "float32")
+    _ssd_case(state, "chunk100", 2, 1000, 64, 64, 128, 100, "bfloat16")
+    _ssd_case(state, "smoke", 2, 40, 8, 16, 16, 32, "bfloat16")
     _ssd_case(state, "smoke_f32", 2, 40, 8, 16, 16, 32, "float32")
     # K4 at recurrentgemma-9b's prefill shape and a ragged S/W
     _rglru_case(state, "path", 8, 2560, 4096, time_it=True)
@@ -728,7 +773,8 @@ def phase_parity_recurrentgemma(state):
 KERNEL_SYMBOLS = {"K1": ("decode_split_kernel",),
                   "K2": ("flash_fwd_tma_kernel", "flash_fwd_mma_kernel",
                          "flash_fwd_kernel"),
-                  "K3": ("ssd_scan_kernel",), "K4": ("rglru_scan_kernel",)}
+                  "K3": ("ssd_scan_mma_kernel", "ssd_scan_kernel"),
+                  "K4": ("rglru_scan_kernel",)}
 
 
 def _trace_summary(prof, wall_s, n):
@@ -927,7 +973,7 @@ def kernel_line(state):
         r = state[key][case]
         rows.append({
             "name": name if case == "path" else f"{name} ({case})",
-            "route": "cuda",
+            "route": "cuda", "variant": r.get("route"),
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{kfile}/kernel.py:{line}",
             "launches": state["launches"][path][key.upper()],

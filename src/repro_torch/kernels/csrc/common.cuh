@@ -97,6 +97,13 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p)));
 }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
 
 // D += A.B, m16n8k16, bf16 in, f32 accumulate.  Fragment layouts (PTX ISA)
 // with g = lane / 4, t = lane % 4: A holds (row g | g+8, cols 2t..2t+1 |

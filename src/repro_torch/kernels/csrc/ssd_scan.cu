@@ -7,33 +7,40 @@
 //   y_i    = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
 //            + exp(cs_i) C_i . state                      (state: P x N)
 //   state <- state exp(cs_last) + sum_j exp(cs_last - cs_j) dt_j x_j B_j^T
-// y in x's dtype, the final state in f32.  All math in f32 on the CUDA
-// cores (the TPU kernel casts to f32 before its dots; no TF32 here).
+// y in x's dtype, the final state in f32.
 //
-// What bounds it on the H100: operations.  At the serving path's shape
-// (B=8, S=1024, H=64, P=64, N=128, chunk 256, bf16) the chunked algorithm
-// needs about 2.6e10 FLOP (causal pairs only, C.B^T once per batch row and
-// chunk), 0.39 ms at 67 TFLOP/s f32, and moves x, y, dt, B, C and the state
-// (about 157 MB, 47 us at 3.35 TB/s).
+// Two routes, chosen by the wrapper (ops.py: route) and passed in:
+//  * ROUTE_MMA, bf16 with P and N multiples of 16 (the served dtype):
+//    ssd_scan_mma_kernel runs the four products on tensor cores
+//    (mma.sync m16n8k16, f32 accumulate).  Every product has one operand
+//    that is exact bf16 in memory (C, B or x); the other, f32, operand
+//    (the gated scores, the state, the weighted x) is split into
+//    hi = bf16(v) and lo = bf16(v - hi), two mma per product, which
+//    carries it to about 2^-16: y and the state match f32 arithmetic
+//    (rounding the f32 operand once would put the state 1e-2 off).
+//  * ROUTE_CUDA_CORE, f32 (and bf16 at other shapes): ssd_scan_kernel, all
+//    math in f32 on the CUDA cores (the TPU kernel casts to f32 before its
+//    dots; no TF32 here).
 //
-// Design (simple and correct first):
-//  * one CTA per (head, batch), 256 threads.  The TPU's sequential chunk
-//    grid axis becomes a loop over chunks inside the CTA; the (P, N) f32
-//    state stays in shared memory from one chunk to the next.
-//  * the chunk is walked in row blocks of 64: for row block I,
-//    y_I = exp(cs_I) C_I state^T + sum_{J<=I} (C_I B_J^T o L_IJ)(x dt)_J, a
-//    causal "attention without softmax"; the decay exp(cs_i - cs_j) is
-//    taken only where i >= j (for i < j it would overflow).  Then the state
-//    update walks the chunk's row blocks once more.
-//  * each thread owns a 4x4 tile of every 64x64 product (16x16 threads),
-//    reading float4 rows of transposed, padded shared-memory tiles.
-//  * ragged sequences: rows past S load as zeros (dt = 0: decay 1,
-//    contribution 0), so the last chunk needs no padded copy and the final
-//    state is exact.  No S % chunk requirement.
-//  * first lever for the redesign: C_I B_J^T is the same for all H heads
-//    of a batch row (one group), yet each head's CTA recomputes it, about
-//    half of this kernel's products.  Sharing it across heads and running
-//    the products on tensor cores (mma / wgmma) come later.
+// What bounds it on the H100, at the serving path's shape (B=8, S=1024,
+// H=64, P=64, N=128, chunk 256, bf16): the chunked algorithm needs about
+// 2.6e10 FLOP (causal pairs only, C.B^T once per batch row and chunk) and
+// moves x, y, dt, B, C and the state (about 157 MB).  In f32 on the CUDA
+// cores that is operations (0.39 ms at 67 TFLOP/s); on the tensor cores
+// bytes (47 us at 3.35 TB/s; 26 us at 989 TFLOP/s).  The mma route does
+// about 8e10 FLOP of mma: each head's CTA recomputes C.B^T (a quarter of
+// its products) and the split doubles three of the four products.
+//
+// Shared design: one CTA per (head, batch); the TPU's sequential chunk
+// grid axis becomes a loop over chunks inside the CTA, the (P, N) f32 state
+// carried from one chunk to the next.  The chunk is walked in row blocks of
+// 64: for row block I, y_I = exp(cs_I) C_I state^T + sum_{J<=I}
+// (C_I B_J^T o L_IJ)(x dt)_J, a causal "attention without softmax"; the
+// decay exp(cs_i - cs_j) is taken only where i >= j (for i < j it would
+// overflow).  Rows past S or past the chunk load as zeros with dt = 0
+// (decay 1, contribution 0), so the last chunk needs no padded copy and the
+// final state is exact: no S % chunk or chunk % 64 requirement.  Fixed
+// order, no atomics: two calls give the same bits.
 #include <math.h>
 
 #include "common.cuh"
@@ -41,6 +48,8 @@
 namespace {
 
 using namespace repro;
+
+enum Route : int { ROUTE_CUDA_CORE = 0, ROUTE_MMA = 1 };  // ops.py: ROUTES
 
 constexpr int NT = 256;      // threads: 16 x 16, each owning a 4x4 tile
 constexpr int BR = 64;       // rows of a chunk's row block
@@ -119,6 +128,13 @@ __device__ void load_xdt(float* dst, const T* __restrict__ x, size_t row,
     dst[r * LD + p] = v;
   }
 }
+
+// ---------------------------------------------------------------------------
+// ROUTE_CUDA_CORE: f32 math on the CUDA cores.  256 threads; each owns a 4x4
+// tile of every 64x64 product (16x16 threads), reading float4 rows of
+// transposed, padded shared-memory tiles; the (P, N) f32 state stays in
+// shared memory; the state update walks the chunk's row blocks once more.
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -283,17 +299,410 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ROUTE_MMA: bf16 on tensor cores, the f32 operand of each product split
+// ---------------------------------------------------------------------------
+//
+// 4 warps; warp w owns rows 16w..16w+15 of the 64-row block I (y) and rows
+// p = 16w..16w+15 of the state.  Per chunk, row block I and column block
+// J <= I (m16n8k16 fragments; C, B, x exact bf16):
+//   y_off  acc  = exp(cs_i) (C_I . St^T)        St = state at chunk entry,
+//                                               split once a chunk into a
+//                                               bf16 hi/lo [p][n] tile
+//   S_IJ        = C_I . B_J^T                   C_I fragments in registers
+//   M_ij        = S_ij exp(cs_i - cs_j) dt_j    i >= j only, on the
+//                                               accumulators (as K2's P)
+//   y_I   acc  += M_IJ . X_J                    M split hi/lo
+//   state       = state exp(cs_last) + sum_J (w o X_J)^T . B_J,
+//                 w_j = exp(cs_last - cs_j) dt_j, split hi/lo; run in the
+//                 last row block's pass over J, which loads every B_J, X_J.
+// dt goes into M and w, never into x, so x stays exact.  The f32 state
+// lives in registers (the state product's accumulators); y_off reads the
+// split copy, so the update cannot disturb what y_off of the same chunk
+// still reads.  On the diagonal block a warp skips the column blocks past
+// its last row.  B_J and X_J stream through a 2-stage cp.async ring
+// (zero-fill past the chunk), C_I through one buffer that is free once
+// the warps hold its fragments; 106 KB of shared memory, two CTAs per SM.
+
+constexpr int MT = 128;             // threads: 4 warps x 16 rows
+constexpr int LDH = NMAX + 8;       // bf16 row stride of the C, B, state tiles
+constexpr int LDX = PMAX + 8;       // bf16 row stride of the x tiles
+constexpr size_t MMA_SMEM_BYTES =
+    sizeof(__nv_bfloat16) * (3 * BR * LDH + 2 * PMAX * LDH + 2 * BR * LDX) +
+    sizeof(float) * (3 * CMAX + 32);
+static_assert(MT * 2 == CMAX, "the chunk scan gives each thread two rows");
+static_assert(PMAX == 4 * 16 && BR == 4 * 16, "4 warps of 16 rows");
+static_assert(MMA_SMEM_BYTES <= 113 * 1024, "two CTAs per SM");
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 bf2_floats(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// (a, b) = hi + lo to about 2^-16 of each: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf2_bits(h);
+  lo = bf2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// c += (ah + al) . b: the split A operand against an exact bf16 B operand
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4],
+                                          const uint32_t al[4],
+                                          const uint32_t b[2]) {
+  mma_16816(c, ah, b);
+  mma_16816(c, al, b);
+}
+
+// rows [0, 64) of a bf16 matrix with row stride `stride` (elements), `cols`
+// elements each (a multiple of 8), into a [64][ld] tile; rows >= nrows are
+// zero-filled (no global read)
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* src,
+                                          size_t stride, int nrows,
+                                          int cols) {
+  const int c8 = cols >> 3;
+  for (int i = threadIdx.x; i < BR * c8; i += MT) {
+    const int r = i / c8, c = (i - r * c8) * 8;
+    const bool in = r < nrows;
+    cp_async16(dst + r * ld + c, in ? src + r * stride + c : src, !in);
+  }
+}
+
+// The chunk's running sum cs of dt A (two rows a thread; rows past len have
+// dt 0, so cs[CMAX - 1] is the chunk's last), dts = dt and the state
+// update's weights wts = exp(last - cs) dt.  Returns last.  The caller
+// synchronises before reading wts.
+__device__ float chunk_scan(const float* __restrict__ dt, size_t crow, int H,
+                            int h, int len, float Ah, float* cs, float* dts,
+                            float* wts, float* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = 2 * tid;
+  const float d0 = r < len ? dt[(crow + r) * H + h] : 0.f;
+  const float d1 = r + 1 < len ? dt[(crow + r + 1) * H + h] : 0.f;
+  const float a0 = d0 * Ah, a1 = d1 * Ah;
+  float v = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) excl = 0.f;
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) excl += wsum[w];
+  cs[r] = excl + a0;
+  cs[r + 1] = excl + a0 + a1;
+  dts[r] = d0;
+  dts[r + 1] = d1;
+  __syncthreads();
+  const float last = cs[CMAX - 1];
+  wts[r] = expf(last - cs[r]) * d0;
+  wts[r + 1] = expf(last - cs[r + 1]) * d1;
+  return last;
+}
+
+__global__ void __launch_bounds__(MT, 2)
+ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const float* __restrict__ dt, const float* __restrict__ A,
+                    const __nv_bfloat16* __restrict__ Bm,
+                    const __nv_bfloat16* __restrict__ Cm,
+                    __nv_bfloat16* __restrict__ y,
+                    float* __restrict__ state_out, int S, int H, int P, int N,
+                    int chunk) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem_raw);  // [BR][LDH] C of block I
+  bf16* Bs = Cs + BR * LDH;          // [2][BR][LDH]   B of block J (ring)
+  bf16* Sh = Bs + 2 * BR * LDH;      // [PMAX][LDH]    state at chunk entry, hi
+  bf16* Sl = Sh + PMAX * LDH;        // [PMAX][LDH]                          lo
+  bf16* Xs = Sl + PMAX * LDH;        // [2][BR][LDX]   x of block J (ring)
+  float* cs = reinterpret_cast<float*>(Xs + 2 * BR * LDX);  // [CMAX]
+  float* dts = cs + CMAX;            // [CMAX] dt
+  float* wts = dts + CMAX;           // [CMAX] exp(last - cs) dt
+  float* wsum = wts + CMAX;          // [32]   scan scratch
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix: lane l addresses row l & 7 of matrix l >> 3
+  const int lr = lane & 7, lsel = (lane >> 3) & 1, lhi = lane >> 4;
+  const int w16 = warp * 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float Ah = A[h];
+  const size_t brow = (size_t)b * S;   // first (b, s) row of this batch
+  const size_t xstride = (size_t)H * P;
+  const int KN = N / 16, NP = P / 8, NN = N / 8;
+  const bool owns_p = w16 < P;         // this warp holds state rows
+
+  float st[NMAX / 8][4];               // state rows p = w16 + (g | g+8)
+  float acc[PMAX / 8][4];              // y rows i = i0 + w16 + (g | g+8)
+  uint32_t cf[NMAX / 16][4];           // C_I fragments (A operand)
+  float ci[2];                         // cs of this thread's two rows
+#pragma unroll
+  for (int nb = 0; nb < NMAX / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[nb][e] = 0.f;
+
+  auto issue = [&](int c, int len_, int Ib, int Jb, int stage) {
+    const size_t crow = brow + c;
+    if (Jb == 0)
+      load_tile(Cs, LDH, Cm + (crow + Ib * BR) * N, N, len_ - Ib * BR, N);
+    load_tile(Bs + stage * BR * LDH, LDH, Bm + (crow + Jb * BR) * N, N,
+              len_ - Jb * BR, N);
+    load_tile(Xs + stage * BR * LDX, LDX,
+              x + ((crow + Jb * BR) * H + h) * P, xstride, len_ - Jb * BR, P);
+    cp_async_commit();
+  };
+
+  // the step being computed: chunk at c0, row block I, column block J
+  int c0 = 0, I = 0, J = 0, len = min(chunk, S);
+  int nI = (len + BR - 1) / BR;
+  issue(0, len, 0, 0, 0);
+  for (int stage = 0;; stage ^= 1) {
+    const size_t crow = brow + c0;
+    if (I == 0 && J == 0) {   // chunk prologue
+      const float last = chunk_scan(dt, crow, H, h, len, Ah, cs, dts, wts,
+                                    wsum);
+      if (owns_p) {
+        const float el = expf(last);
+#pragma unroll
+        for (int nb = 0; nb < NMAX / 8; ++nb) {
+          if (nb >= NN) break;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int o = (w16 + g + 8 * hr) * LDH + nb * 8 + 2 * t;
+            uint32_t hi, lo;
+            split_bf16(st[nb][2 * hr], st[nb][2 * hr + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(Sh + o) = hi;
+            *reinterpret_cast<uint32_t*>(Sl + o) = lo;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nb][e] *= el;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles, the prologue's arrays and Sh/Sl
+
+    int nc0 = c0, nIb = I, nJb = J + 1, nlen = len;   // the next step
+    if (nJb > I) {
+      nJb = 0;
+      if (++nIb == nI) {
+        nIb = 0;
+        nc0 += chunk;
+        nlen = min(chunk, S - nc0);
+      }
+    }
+    const bool more = nc0 < S;
+    const int i0 = I * BR, j0 = J * BR;
+    const bf16* Bt = Bs + stage * BR * LDH;
+    const bf16* Xt = Xs + stage * BR * LDX;
+    const bool live = i0 + w16 < len;  // this warp has rows of the chunk
+
+    if (J == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NMAX / 16; ++kk)
+        if (kk < KN)
+          ldmatrix_x4(cf[kk], Cs + (w16 + (lane & 15)) * LDH + kk * 16 +
+                                  lhi * 8);
+      ci[0] = cs[i0 + w16 + g];
+      ci[1] = cs[i0 + w16 + g + 8];
+      __syncthreads();   // every warp holds C_I: Cs is free
+    }
+    if (more) issue(nc0, nlen, nIb, nJb, stage ^ 1);
+
+    if (J == 0) {   // y_off = exp(cs_i) C_I . St^T
+#pragma unroll
+      for (int nd = 0; nd < PMAX / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+      if (live && c0 > 0) {
+#pragma unroll
+        for (int kk = 0; kk < NMAX / 16; ++kk) {
+          if (kk >= KN) break;
+#pragma unroll
+          for (int nd = 0; nd < PMAX / 8; nd += 2) {
+            if (nd >= NP) break;
+            const int o = (nd * 8 + lr + lhi * 8) * LDH + kk * 16 + lsel * 8;
+            uint32_t hb[4], lb[4];
+            ldmatrix_x4(hb, Sh + o);
+            ldmatrix_x4(lb, Sl + o);
+            mma_16816(acc[nd], cf[kk], hb);
+            mma_16816(acc[nd], cf[kk], lb);
+            mma_16816(acc[nd + 1], cf[kk], hb + 2);
+            mma_16816(acc[nd + 1], cf[kk], lb + 2);
+          }
+        }
+        const float e0 = expf(ci[0]), e1 = expf(ci[1]);
+#pragma unroll
+        for (int nd = 0; nd < PMAX / 8; ++nd) {
+          acc[nd][0] *= e0;
+          acc[nd][1] *= e0;
+          acc[nd][2] *= e1;
+          acc[nd][3] *= e1;
+        }
+      }
+    }
+
+    if (live) {   // y_I += (C_I B_J^T o L_IJ dt_J) . X_J
+      const bool diag = J == I;
+      // column blocks of J that reach this warp's rows
+      const int nbs = diag ? 2 * warp + 2 : BR / 8;
+      float s[BR / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < BR / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NMAX / 16; ++kk) {
+        if (kk >= KN) break;
+#pragma unroll
+        for (int nb = 0; nb < BR / 8; nb += 2) {
+          if (nb >= nbs) break;
+          uint32_t bb[4];
+          ldmatrix_x4(bb, Bt + (nb * 8 + lr + lhi * 8) * LDH + kk * 16 +
+                              lsel * 8);
+          mma_16816(s[nb], cf[kk], bb);
+          mma_16816(s[nb + 1], cf[kk], bb + 2);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < BR / 8; ++nb) {
+        if (nb >= nbs) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + w16 + g + (e >> 1) * 8;
+          const int j = j0 + nb * 8 + 2 * t + (e & 1);
+          s[nb][e] = i >= j ? s[nb][e] * expf(ci[e >> 1] - cs[j]) * dts[j]
+                            : 0.f;
+        }
+      }
+      const int kcs = diag ? warp + 1 : BR / 16;
+#pragma unroll
+      for (int kc = 0; kc < BR / 16; ++kc) {
+        if (kc >= kcs) break;
+        uint32_t mh[4], ml[4];
+        split_bf16(s[2 * kc][0], s[2 * kc][1], mh[0], ml[0]);
+        split_bf16(s[2 * kc][2], s[2 * kc][3], mh[1], ml[1]);
+        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], mh[2], ml[2]);
+        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], mh[3], ml[3]);
+#pragma unroll
+        for (int nd = 0; nd < PMAX / 8; nd += 2) {
+          if (nd >= NP) break;
+          uint32_t xb[4];
+          ldmatrix_x4_trans(xb, Xt + (kc * 16 + lr + lsel * 8) * LDX +
+                                    nd * 8 + lhi * 8);
+          mma_split(acc[nd], mh, ml, xb);
+          mma_split(acc[nd + 1], mh, ml, xb + 2);
+        }
+      }
+      if (diag) {   // block I is complete
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = i0 + w16 + g + 8 * hr;
+          if (i >= len) continue;
+          bf16* yr = y + ((crow + i) * H + h) * P + 2 * t;
+#pragma unroll
+          for (int nd = 0; nd < PMAX / 8; ++nd)
+            if (nd < NP)
+              *reinterpret_cast<__nv_bfloat162*>(yr + nd * 8) =
+                  __floats2bfloat162_rn(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
+        }
+      }
+    }
+
+    if (I == nI - 1 && owns_p) {   // state += (w o X_J)^T . B_J
+#pragma unroll
+      for (int kc = 0; kc < BR / 16; ++kc) {
+        uint32_t xa[4], ah[4], al[4];
+        ldmatrix_x4_trans(xa, Xt + (kc * 16 + lr + lhi * 8) * LDX + w16 +
+                                  lsel * 8);
+        const int j = j0 + kc * 16 + 2 * t;
+        const float wa = wts[j], wb = wts[j + 1];
+        const float wc = wts[j + 8], wd = wts[j + 9];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 v = bf2_floats(xa[r]);
+          split_bf16(v.x * (r < 2 ? wa : wc), v.y * (r < 2 ? wb : wd), ah[r],
+                     al[r]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NMAX / 8; nb += 2) {
+          if (nb >= NN) break;
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, Bt + (kc * 16 + lr + lsel * 8) * LDH +
+                                    nb * 8 + lhi * 8);
+          mma_split(st[nb], ah, al, bb);
+          mma_split(st[nb + 1], ah, al, bb + 2);
+        }
+      }
+    }
+
+    __syncthreads();   // this stage, Sh/Sl and the chunk's arrays are free
+    if (!more) break;
+    c0 = nc0;
+    I = nIb;
+    J = nJb;
+    len = nlen;
+    nI = (len + BR - 1) / BR;
+  }
+
+  if (owns_p) {
+    float* out = state_out + ((size_t)b * H + h) * P * N;
+#pragma unroll
+    for (int nb = 0; nb < NMAX / 8; ++nb) {
+      if (nb >= NN) break;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(out + (w16 + g + 8 * hr) * N + nb * 8 +
+                                   2 * t) =
+            make_float2(st[nb][2 * hr], st[nb][2 * hr + 1]);
+    }
+  }
+}
+
+cudaError_t launch_mma(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, void* y, void* state,
+                       int B, int S, int H, int P, int N, int chunk,
+                       cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)MMA_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B);
+  ssd_scan_mma_kernel<<<grid, MT, MMA_SMEM_BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
+      static_cast<const __nv_bfloat16*>(Cm), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(state), S, H, P, N, chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns a cudaError_t code (0 = launched).  Does not synchronize.
+// Returns a cudaError_t code (0 = launched).  Does not synchronize.  The
+// route is the wrapper's choice; one it cannot take is refused, never
+// replaced by the other.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm, void* y,
-                            void* state, int dtype, int B, int S, int H,
-                            int P, int N, int chunk, void* stream) {
+                            void* state, int dtype, int route, int B, int S,
+                            int H, int P, int N, int chunk, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || P <= 0 || P > PMAX ||
       P % 4 || N <= 0 || N > NMAX || N % 4 || chunk <= 0 || chunk > CMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == ROUTE_MMA) {
+    if (dtype != kBF16 || P % 16 || N % 16) return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(x, dt, A, Bm, Cm, y, state, B, S, H, P, N, chunk,
+                           s);
+  }
+  if (route != ROUTE_CUDA_CORE) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16)
     return (int)launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state, B, S, H,
                                       P, N, chunk, s);

@@ -2,7 +2,9 @@
 
 On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
 the plain version ``ssd_chunked``.  ``ssd_scan.launches`` counts kernel
-launches (not plain-version calls).
+launches (not plain-version calls).  ``route`` picks the kernel by dtype
+and shape; the choice is passed to the C entry point, which refuses a
+route it cannot take (there is no fallback).
 """
 
 from __future__ import annotations
@@ -17,7 +19,19 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 MAX_CHUNK = 256     # csrc/ssd_scan.cu: CMAX
 MAX_P = 64          # PMAX
 MAX_N = 128         # NMAX
-_ARGTYPES = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+MMA_TILE = 16       # the mma route's P and N granule (m16n8k16)
+ROUTES = {"cuda_core": 0, "mma": 1}   # csrc/ssd_scan.cu: Route
+_ARGTYPES = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P)
+
+
+def route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The kernel a call on the card takes: "mma" (ssd_scan_mma_kernel,
+    tensor cores with split-bf16 operands) for bf16 with P and N multiples
+    of 16; "cuda_core" (ssd_scan_kernel, f32 on the CUDA cores) for f32 and
+    for bf16 at other shapes."""
+    if dtype == torch.bfloat16 and P % MMA_TILE == 0 and N % MMA_TILE == 0:
+        return "mma"
+    return "cuda_core"
 
 
 def check_shapes(x, dt, A, Bm, Cm, chunk: int) -> None:
@@ -61,8 +75,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fn = build.load("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), state.data_ptr(), code, Bsz, S,
-                H, Pd, N, chunk, stream_of(x))
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr(), code,
+                ROUTES[route(x.dtype, Pd, N)], Bsz, S, H, Pd, N, chunk,
+                stream_of(x))
     raise_on_error("ssd_scan", rc)
     ssd_scan.launches += 1
     return y, state

@@ -1,5 +1,7 @@
 """Plain PyTorch version of K3 (the Mamba2 SSD chunked scan): the
-reference's ``ssd_chunked``, the oracle the kernel is held against."""
+reference's ``ssd_chunked``, the oracle the kernel is held against; and
+``ssd_chunked_split_ref``, a mirror of the bf16 kernel route's arithmetic
+for the CPU tests (nothing on the serving path calls it)."""
 
 from __future__ import annotations
 
@@ -68,3 +70,62 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
 
     y = (y_diag + y_off).reshape(Bsz, S, H, Pd)[:, :S0]
     return y.to(x.dtype), st
+
+
+def _split(v):
+    """f32 ``v`` as hi + lo, both bf16 values: hi = bf16(v), lo =
+    bf16(v - hi), together good to about 2**-16 of v."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int, block: int = 64):
+    """The mma route of K3 (``csrc/ssd_scan.cu: ssd_scan_mma_kernel``) in
+    plain PyTorch: each chunk in row blocks of ``block``; x, B and C as
+    exact bf16 operands; the f32 operand of each product (the state at
+    chunk entry, the gated scores M, the weighted x) split into hi + lo
+    bf16 parts, each part's product summed in f32.
+
+    Same arguments as ``ssd_chunked``.  Returns (y, final_state), both
+    float32: y is not cast to x's dtype, so a test can hold the route's
+    arithmetic itself against the reference.
+    """
+    f32 = torch.float32
+    Bsz, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    xb, Bb, Cb = (t.to(torch.bfloat16).to(f32) for t in (x, Bm, Cm))
+    dt, A = dt.to(f32), A.to(f32)
+    y = torch.zeros((Bsz, S, H, Pd), dtype=f32, device=x.device)
+    st = torch.zeros((Bsz, H, Pd, N), dtype=f32, device=x.device)
+    pos = torch.arange(chunk, device=x.device)
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        d = dt[:, c0:c0 + L]                                   # (B, L, H)
+        cs = torch.cumsum(d * A, dim=1)
+        last = cs[:, -1]                                       # (B, H)
+        X, Bc, Cc = xb[:, c0:c0 + L], Bb[:, c0:c0 + L], Cb[:, c0:c0 + L]
+        sh, sl = _split(st)
+        for i0 in range(0, L, block):
+            i1 = min(i0 + block, L)
+            Ci, csi = Cc[:, i0:i1], cs[:, i0:i1]
+            acc = (torch.einsum("bin,bhpn->bihp", Ci, sh)
+                   + torch.einsum("bin,bhpn->bihp", Ci, sl)) \
+                * torch.exp(csi)[..., None]
+            for j0 in range(0, i0 + 1, block):
+                j1 = min(j0 + block, L)
+                s = torch.einsum("bin,bjn->bij", Ci, Bc[:, j0:j1])
+                keep = pos[i0:i1, None] >= pos[None, j0:j1]
+                diff = csi[:, :, None, :] - cs[:, None, j0:j1, :]
+                decay = torch.where(keep[None, :, :, None], diff,
+                                    torch.tensor(float("-inf"))).exp()
+                mh, ml = _split(s[..., None] * decay * d[:, None, j0:j1])
+                Xj = X[:, j0:j1]
+                acc = acc + torch.einsum("bijh,bjhp->bihp", mh, Xj) \
+                    + torch.einsum("bijh,bjhp->bihp", ml, Xj)
+            y[:, c0 + i0:c0 + i1] = acc
+        wh, wl = _split((torch.exp(last[:, None] - cs) * d)[..., None] * X)
+        st = st * torch.exp(last)[..., None, None] \
+            + torch.einsum("bjhp,bjn->bhpn", wh, Bc) \
+            + torch.einsum("bjhp,bjn->bhpn", wl, Bc)
+    return y, st

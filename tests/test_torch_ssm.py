@@ -232,15 +232,26 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,P,N,cs", [
     (2, 128, 4, 32, 64, 32), (1, 300, 8, 64, 128, 256),
-    (2, 100, 2, 16, 16, 64)])
+    (2, 100, 2, 16, 16, 64),
+    # the bf16 mma route's edges: ragged S, a chunk that is not a multiple
+    # of its 64-row block, and the smoke shape
+    (2, 1000, 4, 64, 128, 256), (2, 1000, 4, 64, 128, 100),
+    (2, 40, 8, 16, 16, 32)])
 def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, S, H, P, N, cs):
+    """One launch per call, on the route ``route`` picks; two calls give
+    the same bits."""
     x, dt, A, Bm, Cm = (t.to(cuda) for t in _t(*_inputs(S, B, S, H, P, N)))
     dty = getattr(torch, dtype)
     x, Bm, Cm = x.to(dty), Bm.to(dty), Cm.to(dty)
+    assert ssd_ops.route(dty, P, N) == (
+        "mma" if dtype == "bfloat16" else "cuda_core")
     before = ssd_ops.ssd_scan.launches
     y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
     ry, rst = ssd_chunked(x, dt, A, Bm, Cm, chunk=cs)
     assert ssd_ops.ssd_scan.launches == before + 1
+    y2, st2 = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
+    assert ssd_ops.ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
     tol = Y_REL_TOL if dtype == "float32" else 2e-2
     assert _rel(ry.float().cpu(), y.float().cpu()) < tol
     assert _rel(rst.cpu(), st.cpu()) < 1e-3
