@@ -43,6 +43,8 @@
 // order, no atomics: two calls give the same bits.
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -329,7 +331,7 @@ constexpr int LDH = NMAX + 8;       // bf16 row stride of the C, B, state tiles
 constexpr int LDX = PMAX + 8;       // bf16 row stride of the x tiles
 constexpr size_t MMA_SMEM_BYTES =
     sizeof(__nv_bfloat16) * (3 * BR * LDH + 2 * PMAX * LDH + 2 * BR * LDX) +
-    sizeof(float) * (3 * CMAX + 32);
+    sizeof(float) * (4 * CMAX + 32);
 static_assert(MT * 2 == CMAX, "the chunk scan gives each thread two rows");
 static_assert(PMAX == 4 * 16 && BR == 4 * 16, "4 warps of 16 rows");
 static_assert(MMA_SMEM_BYTES <= 113 * 1024, "two CTAs per SM");
@@ -349,14 +351,6 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = bf2_bits(h);
   lo = bf2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-}
-
-// c += (ah + al) . b: the split A operand against an exact bf16 B operand
-__device__ __forceinline__ void mma_split(float c[4], const uint32_t ah[4],
-                                          const uint32_t al[4],
-                                          const uint32_t b[2]) {
-  mma_16816(c, ah, b);
-  mma_16816(c, al, b);
 }
 
 // rows [0, 64) of a bf16 matrix with row stride `stride` (elements), `cols`
@@ -408,6 +402,9 @@ __device__ float chunk_scan(const float* __restrict__ dt, size_t crow, int H,
   return last;
 }
 
+// FULL: P == PMAX and N == NMAX (mamba2-1.3b), known at compile time so
+// the fragment loops carry no shape guards; otherwise P, N at run time.
+template <bool FULL>
 __global__ void __launch_bounds__(MT, 2)
 ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
                     const float* __restrict__ dt, const float* __restrict__ A,
@@ -426,7 +423,8 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
   float* cs = reinterpret_cast<float*>(Xs + 2 * BR * LDX);  // [CMAX]
   float* dts = cs + CMAX;            // [CMAX] dt
   float* wts = dts + CMAX;           // [CMAX] exp(last - cs) dt
-  float* wsum = wts + CMAX;          // [32]   scan scratch
+  float* colf = wts + CMAX;          // [CMAX] exp(cs_i0 - cs_j) dt_j, j < i0
+  float* wsum = colf + CMAX;         // [32]   scan scratch
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -437,36 +435,49 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const float Ah = A[h];
   const size_t brow = (size_t)b * S;   // first (b, s) row of this batch
   const size_t xstride = (size_t)H * P;
-  const int KN = N / 16, NP = P / 8, NN = N / 8;
-  const bool owns_p = w16 < P;         // this warp holds state rows
+  const int KN = FULL ? NMAX / 16 : N / 16;   // k-steps over n
+  const int NP = FULL ? PMAX / 8 : P / 8;      // 8-column blocks of p
+  const int NN = FULL ? NMAX / 8 : N / 8;      // 8-column blocks of n
+  const bool owns_p = w16 < (FULL ? PMAX : P);   // this warp holds state rows
 
   float st[NMAX / 8][4];               // state rows p = w16 + (g | g+8)
   float acc[PMAX / 8][4];              // y rows i = i0 + w16 + (g | g+8)
   uint32_t cf[NMAX / 16][4];           // C_I fragments (A operand)
   float ci[2];                         // cs of this thread's two rows
+  float rf[2];                         // their exp(cs_i - cs_i0)
 #pragma unroll
   for (int nb = 0; nb < NMAX / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) st[nb][e] = 0.f;
 
-  auto issue = [&](int c, int len_, int Ib, int Jb, int stage) {
+  auto issue = [&](int c, int len_, int Ib, int Jb, int stage, bool c_tile,
+                   bool bx_tiles) {
     const size_t crow = brow + c;
-    if (Jb == 0)
+    if (c_tile)
       load_tile(Cs, LDH, Cm + (crow + Ib * BR) * N, N, len_ - Ib * BR, N);
-    load_tile(Bs + stage * BR * LDH, LDH, Bm + (crow + Jb * BR) * N, N,
-              len_ - Jb * BR, N);
-    load_tile(Xs + stage * BR * LDX, LDX,
-              x + ((crow + Jb * BR) * H + h) * P, xstride, len_ - Jb * BR, P);
+    if (bx_tiles) {
+      load_tile(Bs + stage * BR * LDH, LDH, Bm + (crow + Jb * BR) * N, N,
+                len_ - Jb * BR, N);
+      load_tile(Xs + stage * BR * LDX, LDX,
+                x + ((crow + Jb * BR) * H + h) * P, xstride, len_ - Jb * BR,
+                P);
+    }
     cp_async_commit();
   };
+  // Row block I visits J = I-1, ..., 0, then the diagonal I: its first
+  // step reads the tile of the previous block's last (J = I-1), which
+  // stays in its ring stage instead of being loaded again
+  auto col = [](int Ib, int k) { return k < Ib ? Ib - 1 - k : Ib; };
 
-  // the step being computed: chunk at c0, row block I, column block J
-  int c0 = 0, I = 0, J = 0, len = min(chunk, S);
+  // the step being computed: chunk at c0, row block I, its k-th column
+  // block J
+  int c0 = 0, I = 0, k = 0, len = min(chunk, S);
   int nI = (len + BR - 1) / BR;
-  issue(0, len, 0, 0, 0);
-  for (int stage = 0;; stage ^= 1) {
+  issue(0, len, 0, 0, 0, true, true);
+  for (int stage = 0;;) {
+    const int J = col(I, k);
     const size_t crow = brow + c0;
-    if (I == 0 && J == 0) {   // chunk prologue
+    if (I == 0 && k == 0) {   // chunk prologue
       const float last = chunk_scan(dt, crow, H, h, len, Ah, cs, dts, wts,
                                     wsum);
       if (owns_p) {
@@ -490,9 +501,9 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_wait<0>();
     __syncthreads();   // this step's tiles, the prologue's arrays and Sh/Sl
 
-    int nc0 = c0, nIb = I, nJb = J + 1, nlen = len;   // the next step
-    if (nJb > I) {
-      nJb = 0;
+    int nc0 = c0, nIb = I, nk = k + 1, nlen = len;   // the next step
+    if (nk > I) {
+      nk = 0;
       if (++nIb == nI) {
         nIb = 0;
         nc0 += chunk;
@@ -500,12 +511,14 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
     const bool more = nc0 < S;
+    const int nJb = col(nIb, nk);
+    const bool reuse = nc0 == c0 && nJb == J;   // same B_J, X_J tiles
     const int i0 = I * BR, j0 = J * BR;
     const bf16* Bt = Bs + stage * BR * LDH;
     const bf16* Xt = Xs + stage * BR * LDX;
     const bool live = i0 + w16 < len;  // this warp has rows of the chunk
 
-    if (J == 0) {
+    if (k == 0) {
 #pragma unroll
       for (int kk = 0; kk < NMAX / 16; ++kk)
         if (kk < KN)
@@ -513,98 +526,135 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                   lhi * 8);
       ci[0] = cs[i0 + w16 + g];
       ci[1] = cs[i0 + w16 + g + 8];
-      __syncthreads();   // every warp holds C_I: Cs is free
+      // the decay of i >= i0 > j as exp(cs_i - cs_i0) exp(cs_i0 - cs_j):
+      // both factors <= 1, the row factor applied once at the diagonal
+      const float cs0 = cs[i0];
+      for (int j = tid; j < i0; j += MT) colf[j] = expf(cs0 - cs[j]) * dts[j];
+      rf[0] = expf(ci[0] - cs0);
+      rf[1] = expf(ci[1] - cs0);
+      __syncthreads();   // every warp holds C_I: Cs is free; colf is set
     }
-    if (more) issue(nc0, nlen, nIb, nJb, stage ^ 1);
+    if (more) issue(nc0, nlen, nIb, nJb, stage ^ 1, nk == 0, !reuse);
 
-    if (J == 0) {   // y_off = exp(cs_i) C_I . St^T
+    if (k == 0) {   // y_off = exp(cs_i) C_I . St^T
 #pragma unroll
       for (int nd = 0; nd < PMAX / 8; ++nd)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
       if (live && c0 > 0) {
+        // the hi pass over all column blocks, then the lo pass: no two
+        // neighbouring mma share an accumulator
 #pragma unroll
         for (int kk = 0; kk < NMAX / 16; ++kk) {
           if (kk >= KN) break;
 #pragma unroll
-          for (int nd = 0; nd < PMAX / 8; nd += 2) {
-            if (nd >= NP) break;
-            const int o = (nd * 8 + lr + lhi * 8) * LDH + kk * 16 + lsel * 8;
-            uint32_t hb[4], lb[4];
-            ldmatrix_x4(hb, Sh + o);
-            ldmatrix_x4(lb, Sl + o);
-            mma_16816(acc[nd], cf[kk], hb);
-            mma_16816(acc[nd], cf[kk], lb);
-            mma_16816(acc[nd + 1], cf[kk], hb + 2);
-            mma_16816(acc[nd + 1], cf[kk], lb + 2);
+          for (int part = 0; part < 2; ++part) {
+            const bf16* St = part ? Sl : Sh;
+            uint32_t sb[PMAX / 16][4];
+#pragma unroll
+            for (int q = 0; q < PMAX / 16; ++q)
+              if (2 * q < NP)
+                ldmatrix_x4(sb[q], St + (q * 16 + lr + lhi * 8) * LDH +
+                                       kk * 16 + lsel * 8);
+#pragma unroll
+            for (int q = 0; q < PMAX / 16; ++q)
+              if (2 * q < NP) {
+                mma_16816(acc[2 * q], cf[kk], sb[q]);
+                mma_16816(acc[2 * q + 1], cf[kk], sb[q] + 2);
+              }
           }
         }
-        const float e0 = expf(ci[0]), e1 = expf(ci[1]);
+        const float e0 = expf(cs[i0]);   // times rf at the diagonal
 #pragma unroll
-        for (int nd = 0; nd < PMAX / 8; ++nd) {
-          acc[nd][0] *= e0;
-          acc[nd][1] *= e0;
-          acc[nd][2] *= e1;
-          acc[nd][3] *= e1;
-        }
+        for (int nd = 0; nd < PMAX / 8; ++nd)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nd][e] *= e0;
       }
     }
 
-    if (live) {   // y_I += (C_I B_J^T o L_IJ dt_J) . X_J
-      const bool diag = J == I;
-      // column blocks of J that reach this warp's rows
-      const int nbs = diag ? 2 * warp + 2 : BR / 8;
-      float s[BR / 8][4];
+    // y_I += (C_I B_J^T o L_IJ dt_J) . X_J, in two halves of J's columns
+    // (j0 + 32 hf ...): the exp and split of one half can overlap the
+    // other's mma.  On the diagonal (DIAG) a warp stops at its last row.
+    auto pair = [&](auto diag_t) {
+      constexpr bool DIAG = decltype(diag_t)::value;
+      const int nbs = DIAG ? 2 * warp + 2 : BR / 8;   // 8-column blocks
 #pragma unroll
-      for (int nb = 0; nb < BR / 8; ++nb)
+      for (int hf = 0; hf < 2; ++hf) {
+        if (4 * hf >= nbs) break;
+        float s[4][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int kk = 0; kk < NMAX / 16; ++kk) {
-        if (kk >= KN) break;
+          for (int e = 0; e < 4; ++e) s[q][e] = 0.f;
 #pragma unroll
-        for (int nb = 0; nb < BR / 8; nb += 2) {
+        for (int kk = 0; kk < NMAX / 16; ++kk) {
+          if (kk >= KN) break;
+#pragma unroll
+          for (int q = 0; q < 4; q += 2) {
+            const int nb = 4 * hf + q;
+            if (nb >= nbs) break;
+            uint32_t bb[4];
+            ldmatrix_x4(bb, Bt + (nb * 8 + lr + lhi * 8) * LDH + kk * 16 +
+                                lsel * 8);
+            mma_16816(s[q], cf[kk], bb);
+            mma_16816(s[q + 1], cf[kk], bb + 2);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int nb = 4 * hf + q;
           if (nb >= nbs) break;
-          uint32_t bb[4];
-          ldmatrix_x4(bb, Bt + (nb * 8 + lr + lhi * 8) * LDH + kk * 16 +
-                              lsel * 8);
-          mma_16816(s[nb], cf[kk], bb);
-          mma_16816(s[nb + 1], cf[kk], bb + 2);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i0 + w16 + g + (e >> 1) * 8;
+            const int j = j0 + nb * 8 + 2 * t + (e & 1);
+            // M = S exp(cs_i - cs_j) dt_j, the exponent taken only where
+            // i >= j; off the diagonal without its row factor
+            if (DIAG)
+              s[q][e] = i >= j ? s[q][e] * expf(ci[e >> 1] - cs[j]) * dts[j]
+                               : 0.f;
+            else
+              s[q][e] *= colf[j];
+          }
+        }
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          if (4 * hf + 2 * kq >= nbs) break;
+          const int kc = 2 * hf + kq;
+          uint32_t mh[4], ml[4];
+          split_bf16(s[2 * kq][0], s[2 * kq][1], mh[0], ml[0]);
+          split_bf16(s[2 * kq][2], s[2 * kq][3], mh[1], ml[1]);
+          split_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1], mh[2], ml[2]);
+          split_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3], mh[3], ml[3]);
+          uint32_t xb[PMAX / 16][4];
+#pragma unroll
+          for (int q = 0; q < PMAX / 16; ++q)
+            if (2 * q < NP)
+              ldmatrix_x4_trans(xb[q], Xt + (kc * 16 + lr + lsel * 8) * LDX +
+                                           q * 16 + lhi * 8);
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int q = 0; q < PMAX / 16; ++q)
+              if (2 * q < NP) {
+                mma_16816(acc[2 * q], part ? ml : mh, xb[q]);
+                mma_16816(acc[2 * q + 1], part ? ml : mh, xb[q] + 2);
+              }
         }
       }
+    };
+    if (live) {
+      if (J == I) {
 #pragma unroll
-      for (int nb = 0; nb < BR / 8; ++nb) {
-        if (nb >= nbs) break;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = i0 + w16 + g + (e >> 1) * 8;
-          const int j = j0 + nb * 8 + 2 * t + (e & 1);
-          s[nb][e] = i >= j ? s[nb][e] * expf(ci[e >> 1] - cs[j]) * dts[j]
-                            : 0.f;
+        for (int nd = 0; nd < PMAX / 8; ++nd) {
+          acc[nd][0] *= rf[0];
+          acc[nd][1] *= rf[0];
+          acc[nd][2] *= rf[1];
+          acc[nd][3] *= rf[1];
         }
-      }
-      const int kcs = diag ? warp + 1 : BR / 16;
+        pair(std::true_type{});
 #pragma unroll
-      for (int kc = 0; kc < BR / 16; ++kc) {
-        if (kc >= kcs) break;
-        uint32_t mh[4], ml[4];
-        split_bf16(s[2 * kc][0], s[2 * kc][1], mh[0], ml[0]);
-        split_bf16(s[2 * kc][2], s[2 * kc][3], mh[1], ml[1]);
-        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], mh[2], ml[2]);
-        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], mh[3], ml[3]);
-#pragma unroll
-        for (int nd = 0; nd < PMAX / 8; nd += 2) {
-          if (nd >= NP) break;
-          uint32_t xb[4];
-          ldmatrix_x4_trans(xb, Xt + (kc * 16 + lr + lsel * 8) * LDX +
-                                    nd * 8 + lhi * 8);
-          mma_split(acc[nd], mh, ml, xb);
-          mma_split(acc[nd + 1], mh, ml, xb + 2);
-        }
-      }
-      if (diag) {   // block I is complete
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
+        for (int hr = 0; hr < 2; ++hr) {   // block I is complete
           const int i = i0 + w16 + g + 8 * hr;
           if (i >= len) continue;
           bf16* yr = y + ((crow + i) * H + h) * P + 2 * t;
@@ -614,6 +664,8 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
               *reinterpret_cast<__nv_bfloat162*>(yr + nd * 8) =
                   __floats2bfloat162_rn(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
         }
+      } else {
+        pair(std::false_type{});
       }
     }
 
@@ -632,23 +684,35 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
           split_bf16(v.x * (r < 2 ? wa : wc), v.y * (r < 2 ? wb : wd), ah[r],
                      al[r]);
         }
+        // groups of 8 column blocks: the hi pass, then the lo pass
 #pragma unroll
-        for (int nb = 0; nb < NMAX / 8; nb += 2) {
-          if (nb >= NN) break;
-          uint32_t bb[4];
-          ldmatrix_x4_trans(bb, Bt + (kc * 16 + lr + lsel * 8) * LDH +
-                                    nb * 8 + lhi * 8);
-          mma_split(st[nb], ah, al, bb);
-          mma_split(st[nb + 1], ah, al, bb + 2);
+        for (int g8 = 0; g8 < NMAX / 64; ++g8) {
+          if (g8 * 8 >= NN) break;
+          uint32_t bb[4][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (g8 * 8 + 2 * q < NN)
+              ldmatrix_x4_trans(bb[q], Bt + (kc * 16 + lr + lsel * 8) * LDH +
+                                           g8 * 64 + q * 16 + lhi * 8);
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (g8 * 8 + 2 * q < NN) {
+                const int nb = g8 * 8 + 2 * q;
+                mma_16816(st[nb], part ? al : ah, bb[q]);
+                mma_16816(st[nb + 1], part ? al : ah, bb[q] + 2);
+              }
         }
       }
     }
 
     __syncthreads();   // this stage, Sh/Sl and the chunk's arrays are free
     if (!more) break;
+    if (!reuse) stage ^= 1;
     c0 = nc0;
     I = nIb;
-    J = nJb;
+    k = nk;
     len = nlen;
     nI = (len + BR - 1) / BR;
   }
@@ -671,12 +735,13 @@ cudaError_t launch_mma(const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, void* y, void* state,
                        int B, int S, int H, int P, int N, int chunk,
                        cudaStream_t stream) {
+  auto kern = P == PMAX && N == NMAX ? ssd_scan_mma_kernel<true>
+                                     : ssd_scan_mma_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)MMA_SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  ssd_scan_mma_kernel<<<grid, MT, MMA_SMEM_BYTES, stream>>>(
+  kern<<<grid, MT, MMA_SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<__nv_bfloat16*>(y),

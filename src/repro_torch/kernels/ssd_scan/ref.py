@@ -84,7 +84,8 @@ def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int, block: int = 64):
     plain PyTorch: each chunk in row blocks of ``block``; x, B and C as
     exact bf16 operands; the f32 operand of each product (the state at
     chunk entry, the gated scores M, the weighted x) split into hi + lo
-    bf16 parts, each part's product summed in f32.
+    bf16 parts, each part's product summed in f32; the decay of blocks
+    J < I factored as the kernel factors it.
 
     Same arguments as ``ssd_chunked``.  Returns (y, final_state), both
     float32: y is not cast to x's dtype, so a test can hold the route's
@@ -108,21 +109,31 @@ def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int, block: int = 64):
         sh, sl = _split(st)
         for i0 in range(0, L, block):
             i1 = min(i0 + block, L)
-            Ci, csi = Cc[:, i0:i1], cs[:, i0:i1]
+            Ci, csi, cs0 = Cc[:, i0:i1], cs[:, i0:i1], cs[:, i0]
             acc = (torch.einsum("bin,bhpn->bihp", Ci, sh)
                    + torch.einsum("bin,bhpn->bihp", Ci, sl)) \
-                * torch.exp(csi)[..., None]
-            for j0 in range(0, i0 + 1, block):
-                j1 = min(j0 + block, L)
-                s = torch.einsum("bin,bjn->bij", Ci, Bc[:, j0:j1])
-                keep = pos[i0:i1, None] >= pos[None, j0:j1]
-                diff = csi[:, :, None, :] - cs[:, None, j0:j1, :]
-                decay = torch.where(keep[None, :, :, None], diff,
-                                    torch.tensor(float("-inf"))).exp()
-                mh, ml = _split(s[..., None] * decay * d[:, None, j0:j1])
-                Xj = X[:, j0:j1]
+                * torch.exp(cs0)[:, None, :, None]
+            # blocks J < I: the decay as exp(cs_i - cs_i0) exp(cs_i0 - cs_j),
+            # both <= 1, the row factor applied once after the sum
+            for j0 in range(0, i0, block):
+                colf = torch.exp(cs0[:, None] - cs[:, j0:j0 + block]) \
+                    * d[:, j0:j0 + block]                      # (B, lj, H)
+                s = torch.einsum("bin,bjn->bij", Ci, Bc[:, j0:j0 + block])
+                mh, ml = _split(s[..., None] * colf[:, None])
+                Xj = X[:, j0:j0 + block]
                 acc = acc + torch.einsum("bijh,bjhp->bihp", mh, Xj) \
                     + torch.einsum("bijh,bjhp->bihp", ml, Xj)
+            acc = acc * torch.exp(csi - cs0[:, None])[..., None]
+            # the diagonal block: exp(cs_i - cs_j) where i >= j
+            s = torch.einsum("bin,bjn->bij", Ci, Bc[:, i0:i1])
+            keep = pos[:i1 - i0, None] >= pos[None, :i1 - i0]
+            diff = csi[:, :, None, :] - csi[:, None, :, :]
+            decay = torch.where(keep[None, :, :, None], diff,
+                                torch.tensor(float("-inf"))).exp()
+            mh, ml = _split(s[..., None] * decay * d[:, None, i0:i1])
+            Xi = X[:, i0:i1]
+            acc = acc + torch.einsum("bijh,bjhp->bihp", mh, Xi) \
+                + torch.einsum("bijh,bjhp->bihp", ml, Xi)
             y[:, c0 + i0:c0 + i1] = acc
         wh, wl = _split((torch.exp(last[:, None] - cs) * d)[..., None] * X)
         st = st * torch.exp(last)[..., None, None] \
