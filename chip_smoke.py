@@ -11,13 +11,15 @@ caught):
 2. kernels against their plain PyTorch versions on the card, at the serving
    paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
    yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K3 at
-   mamba2-1.3b's, K4 at recurrentgemma-9b's, plus ragged, small and edge
-   cases (K1: wholly masked splits, one lane; K2: Sq 1/127/129/200, windows
-   ending on a tile boundary, hd 16 and 64); at the path shapes two calls
-   of each kernel must give the same bits; times of kernel, plain version
-   and, where one exists, a PyTorch call computing the same function (a
-   yardstick only: the port never calls it) beside each kernel's bound,
-   for K1/K2 also their device time from a trace;
+   mamba2-1.3b's (bf16 on its mma route, f32 on the CUDA cores), K4 at
+   recurrentgemma-9b's, plus ragged, small and edge cases (K1: wholly
+   masked splits, one lane; K2: Sq 1/127/129/200, windows ending on a tile
+   boundary, hd 16 and 64; K3: chunk 100, the smoke shape); at the path
+   shapes two calls of each kernel must give the same bits; times of
+   kernel (device time from a trace), plain version and, where one exists,
+   a PyTorch call computing the same function (a yardstick only: the port
+   never calls it) beside each kernel's bound; for K3 at bf16 also the
+   CUDA-core route on the same inputs, the design the mma route replaced;
 3. serving at full width: ``FunkyRuntime`` -> ``FunkyCL`` -> ``Monitor``
    serves full-width yi-9b (random weights from a seed) to DONE; the kernel
    launch counts must rise by 48 per prefill and 48 per decoded token;
@@ -847,7 +849,8 @@ def _profile(state, key):
 
     with torch.no_grad():
         prefill()                                  # warm-up
-        prefill_s = timed(prefill, 1)
+        # the median of three: one sample can carry the allocator's growth
+        prefill_s = statistics.median(timed(prefill, 1) for _ in range(3))
         with profile(activities=acts) as prof:
             wall = timed(prefill, 1)
         pre = _trace_summary(prof, wall, 1)

@@ -450,7 +450,7 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int e = 0; e < 4; ++e) st[nb][e] = 0.f;
 
-  auto issue = [&](int c, int len_, int Ib, int Jb, int stage, bool c_tile,
+  auto fetch = [&](int c, int len_, int Ib, int Jb, int stage, bool c_tile,
                    bool bx_tiles) {
     const size_t crow = brow + c;
     if (c_tile)
@@ -473,7 +473,7 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
   // block J
   int c0 = 0, I = 0, k = 0, len = min(chunk, S);
   int nI = (len + BR - 1) / BR;
-  issue(0, len, 0, 0, 0, true, true);
+  fetch(0, len, 0, 0, 0, true, true);
   for (int stage = 0;;) {
     const int J = col(I, k);
     const size_t crow = brow + c0;
@@ -534,7 +534,7 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x,
       rf[1] = expf(ci[1] - cs0);
       __syncthreads();   // every warp holds C_I: Cs is free; colf is set
     }
-    if (more) issue(nc0, nlen, nIb, nJb, stage ^ 1, nk == 0, !reuse);
+    if (more) fetch(nc0, nlen, nIb, nJb, stage ^ 1, nk == 0, !reuse);
 
     if (k == 0) {   // y_off = exp(cs_i) C_I . St^T
 #pragma unroll

@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+ROW_BLOCK = 64      # csrc/ssd_scan.cu: BR, the mma route's row block
+
 
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     """Chunked SSD scan.
@@ -79,9 +81,9 @@ def _split(v):
     return hi, (v - hi).to(torch.bfloat16).float()
 
 
-def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int, block: int = 64):
+def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int):
     """The mma route of K3 (``csrc/ssd_scan.cu: ssd_scan_mma_kernel``) in
-    plain PyTorch: each chunk in row blocks of ``block``; x, B and C as
+    plain PyTorch: each chunk in row blocks of ``ROW_BLOCK``; x, B and C as
     exact bf16 operands; the f32 operand of each product (the state at
     chunk entry, the gated scores M, the weighted x) split into hi + lo
     bf16 parts, each part's product summed in f32; the decay of blocks
@@ -107,20 +109,20 @@ def ssd_chunked_split_ref(x, dt, A, Bm, Cm, *, chunk: int, block: int = 64):
         last = cs[:, -1]                                       # (B, H)
         X, Bc, Cc = xb[:, c0:c0 + L], Bb[:, c0:c0 + L], Cb[:, c0:c0 + L]
         sh, sl = _split(st)
-        for i0 in range(0, L, block):
-            i1 = min(i0 + block, L)
+        for i0 in range(0, L, ROW_BLOCK):
+            i1 = min(i0 + ROW_BLOCK, L)
             Ci, csi, cs0 = Cc[:, i0:i1], cs[:, i0:i1], cs[:, i0]
             acc = (torch.einsum("bin,bhpn->bihp", Ci, sh)
                    + torch.einsum("bin,bhpn->bihp", Ci, sl)) \
                 * torch.exp(cs0)[:, None, :, None]
             # blocks J < I: the decay as exp(cs_i - cs_i0) exp(cs_i0 - cs_j),
             # both <= 1, the row factor applied once after the sum
-            for j0 in range(0, i0, block):
-                colf = torch.exp(cs0[:, None] - cs[:, j0:j0 + block]) \
-                    * d[:, j0:j0 + block]                      # (B, lj, H)
-                s = torch.einsum("bin,bjn->bij", Ci, Bc[:, j0:j0 + block])
+            for j0 in range(0, i0, ROW_BLOCK):
+                colf = torch.exp(cs0[:, None] - cs[:, j0:j0 + ROW_BLOCK]) \
+                    * d[:, j0:j0 + ROW_BLOCK]                      # (B, lj, H)
+                s = torch.einsum("bin,bjn->bij", Ci, Bc[:, j0:j0 + ROW_BLOCK])
                 mh, ml = _split(s[..., None] * colf[:, None])
-                Xj = X[:, j0:j0 + block]
+                Xj = X[:, j0:j0 + ROW_BLOCK]
                 acc = acc + torch.einsum("bijh,bjhp->bihp", mh, Xj) \
                     + torch.einsum("bijh,bjhp->bihp", ml, Xj)
             acc = acc * torch.exp(csi - cs0[:, None])[..., None]

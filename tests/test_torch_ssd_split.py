@@ -25,8 +25,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.ssd_scan.kernel import ssd_scan_fwd  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,  # noqa: E402
-                                              ssd_chunked_split_ref)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ROW_BLOCK, ssd_chunked, ssd_chunked_split_ref)
 from repro_torch.models.ssm import ssm_dims  # noqa: E402
 
 Y_TOL = 1e-4        # of max |y|
@@ -152,8 +152,8 @@ def test_wrapper_constants_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    assert (ops.MAX_CHUNK, ops.MAX_P, ops.MAX_N) == (
-        const("CMAX"), const("PMAX"), const("NMAX"))
+    assert (ops.MAX_CHUNK, ops.MAX_P, ops.MAX_N, ROW_BLOCK) == (
+        const("CMAX"), const("PMAX"), const("NMAX"), const("BR"))
     enum = re.search(r"enum Route : int \{ ROUTE_CUDA_CORE = (\d+), "
                      r"ROUTE_MMA = (\d+) \};", src)
     assert ops.ROUTES == {"cuda_core": int(enum[1]), "mma": int(enum[2])}
