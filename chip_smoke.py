@@ -19,7 +19,8 @@ caught):
    kernel (device time from a trace), plain version and, where one exists,
    a PyTorch call computing the same function (a yardstick only: the port
    never calls it) beside each kernel's bound; for K3 at bf16 also the
-   CUDA-core route on the same inputs, the design the mma route replaced;
+   CUDA-core route on the same inputs, held to the same gates (the design
+   the mma route replaced, and the route of bf16 off its 16-grain);
 3. serving at full width: ``FunkyRuntime`` -> ``FunkyCL`` -> ``Monitor``
    serves full-width yi-9b (random weights from a seed) to DONE; the kernel
    launch counts must rise by 48 per prefill and 48 per decoded token;
@@ -367,8 +368,9 @@ def _ssd_flops_bytes(B, S, H, P, N, cs, esz):
 
 def _ssd_other_route(x, dt, A, Bm, Cm, cs):
     """K3 at bf16 on the CUDA-core route (what the bf16 path ran before the
-    mma route), called through the C entry point: a yardstick of the old
-    design on the same inputs.  It bypasses the wrapper and its count."""
+    mma route, and what bf16 off the 16-grain takes), called through the C
+    entry point on the same inputs.  It bypasses the wrapper and its
+    count."""
     import torch
 
     from repro_torch.kernels import build
@@ -386,6 +388,24 @@ def _ssd_other_route(x, dt, A, Bm, Cm, cs):
         build.DTYPE_CODES["bfloat16"], ops.ROUTES["cuda_core"], Bsz, S, H, P,
         N, min(cs, S), stream_of(x)))
     return y, st
+
+
+def _ssd_gate(what, y, st, ry, rst, dtype):
+    """y's max error over max |y| and the state's max absolute error against
+    the plain version's; raises past ``K3_TOL`` or on a non-finite output."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    y_rel = ((y.float() - ry.float()).abs().max()
+             / ry.float().abs().max()).item()
+    st_err = (st - rst).abs().max().item()
+    y_tol, st_tol = K3_TOL[dtype]
+    if y_rel > y_tol or st_err > st_tol:
+        raise AssertionError(f"{what}: y rel err {y_rel} (tol {y_tol}), "
+                             f"state err {st_err} (tol {st_tol})")
+    return y_rel, st_err
 
 
 def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
@@ -408,21 +428,18 @@ def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
     Bm, Cm = ((randn(B, S, N) * 0.3).to(dt_) for _ in range(2))
     y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
     ry, rst = ssd_chunked(x, dt, A, Bm, Cm, chunk=cs)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
-        raise AssertionError(f"K3 {tag}: non-finite kernel output")
-    y_rel = ((y.float() - ry.float()).abs().max()
-             / ry.float().abs().max()).item()
-    st_err = (st - rst).abs().max().item()
-    y_tol, st_tol = K3_TOL[dtype]
+    y_rel, st_err = _ssd_gate(f"K3 {tag}", y, st, ry, rst, dtype)
     rec = {"case": tag, "shape": [B, S, H, P, N], "chunk": cs,
            "dtype": dtype, "route": route(dt_, P, N), "y_rel_err": y_rel,
            "state_abs_err": st_err,
            "max_abs_err": (y.float() - ry.float()).abs().max().item(),
-           "tol": [y_tol, st_tol]}
-    if y_rel > y_tol or st_err > st_tol:
-        raise AssertionError(f"K3 {tag}: y rel err {y_rel} (tol {y_tol}), "
-                             f"state err {st_err} (tol {st_tol})")
+           "tol": list(K3_TOL[dtype])}
+    if rec["route"] == "mma":
+        # the CUDA-core route, which bf16 takes off the mma route's 16-grain,
+        # on the same bf16 inputs and held to the same gates
+        oy, ost = _ssd_other_route(x, dt, A, Bm, Cm, cs)
+        rec["cuda_core_y_rel_err"], rec["cuda_core_state_abs_err"] = \
+            _ssd_gate(f"K3 {tag} (CUDA-core route)", oy, ost, ry, rst, dtype)
     if time_it:
         rec["bitwise_repeat"] = check_bitwise(
             f"K3 {tag}", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cs))
@@ -442,11 +459,6 @@ def _ssd_case(state, tag, B, S, H, P, N, cs, dtype, time_it=False):
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes")
         if rec["route"] == "mma":
-            # the CUDA-core route on the same bf16 inputs, same gates
-            oy, ost = _ssd_other_route(x, dt, A, Bm, Cm, cs)
-            rec["cuda_core_y_rel_err"] = ((oy.float() - ry.float()).abs()
-                                          .max() / ry.float().abs().max()
-                                          ).item()
             rec["cuda_core_device_ms"] = device_ms(
                 lambda: _ssd_other_route(x, dt, A, Bm, Cm, cs), [()],
                 expect="ssd_scan_kernel")
@@ -807,13 +819,46 @@ def _trace_summary(prof, wall_s, n):
                     for us, c, k in top[:8]]}
 
 
+def timed(fn, n):
+    """Host seconds of ``n`` calls of ``fn``, closed on a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def prefill_runner(cfg, bundle, params, S):
+    """The warm prefill the profile phases time: batch 8 of ``S`` tokens
+    from ``make_batch``, straight through the bundle's prefill program.
+    Returns ``(prefill, run)``; each ``prefill()`` leaves the logits, the
+    caches and the position in ``run``."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.train import make_batch
+
+    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
+                                      0)["tokens"]).cuda()
+    run = {}
+
+    def prefill():
+        run["logits"], run["caches"] = bundle.prefill_fn(params,
+                                                         {"tokens": toks})
+        run["pos"] = toks.shape[1]
+
+    return prefill, run
+
+
 def _profile(state, key):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.models import build_model
-    from repro_torch.train import make_batch
 
     arch, S = PATHS[key][:2]
     cfg = get_arch(arch)
@@ -823,15 +868,8 @@ def _profile(state, key):
         del params
         _free_cuda()
         params = bundle.init(SEED, device="cuda")
-    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
-                                      0)["tokens"]).cuda()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    run = {}
-
-    def prefill():
-        run["logits"], run["caches"] = bundle.prefill_fn(params,
-                                                         {"tokens": toks})
-        run["pos"] = toks.shape[1]
+    prefill, run = prefill_runner(cfg, bundle, params, S)
 
     def decode():
         tok = run["logits"].argmax(-1).to(torch.int32)
@@ -839,18 +877,9 @@ def _profile(state, key):
             params, tok, run["pos"], run["caches"], inplace=True)
         run["pos"] += 1
 
-    def timed(fn, n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     with torch.no_grad():
         prefill()                                  # warm-up
-        # the median of three: one sample can carry the allocator's growth
-        prefill_s = statistics.median(timed(prefill, 1) for _ in range(3))
+        prefill_s = timed(prefill, 1)
         with profile(activities=acts) as prof:
             wall = timed(prefill, 1)
         pre = _trace_summary(prof, wall, 1)

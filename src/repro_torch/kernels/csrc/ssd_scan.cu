@@ -324,7 +324,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 // still reads.  On the diagonal block a warp skips the column blocks past
 // its last row.  B_J and X_J stream through a 2-stage cp.async ring
 // (zero-fill past the chunk), C_I through one buffer that is free once
-// the warps hold its fragments; 106 KB of shared memory, two CTAs per SM.
+// the warps hold its fragments; MMA_SMEM_BYTES = 109,696 B (about 107 KiB)
+// of shared memory, two CTAs per SM.
 
 constexpr int MT = 128;             // threads: 4 warps x 16 rows
 constexpr int LDH = NMAX + 8;       // bf16 row stride of the C, B, state tiles

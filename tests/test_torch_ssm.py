@@ -255,3 +255,24 @@ def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, S, H, P, N, cs):
     tol = Y_REL_TOL if dtype == "float32" else 2e-2
     assert _rel(ry.float().cpu(), y.float().cpu()) < tol
     assert _rel(rst.cpu(), st.cpu()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,cs", [
+    (2, 300, 4, 20, 36, 64), (1, 200, 2, 64, 36, 100),
+    (2, 100, 4, 20, 128, 256)])
+def test_ssd_kernel_bf16_off_grain_on_card(cuda, B, S, H, P, N, cs):
+    """bf16 with P or N off the mma route's 16-grain takes the CUDA-core
+    kernel: held against the plain version like the other routes, one
+    launch per call, the same bits twice."""
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _t(*_inputs(S, B, S, H, P, N)))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    assert ssd_ops.route(torch.bfloat16, P, N) == "cuda_core"
+    before = ssd_ops.ssd_scan.launches
+    y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
+    y2, st2 = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=cs)
+    assert ssd_ops.ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    ry, rst = ssd_chunked(x, dt, A, Bm, Cm, chunk=cs)
+    assert _rel(ry.float().cpu(), y.float().cpu()) < 2e-2
+    assert _rel(rst.cpu(), st.cpu()) < 1e-3

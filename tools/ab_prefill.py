@@ -7,11 +7,12 @@ CUDA card.
 
 Runs the port of each checkout (``<dir>/src``) in a process of its own,
 in the order other, this, this, other: random weights from seed 0, batch
-8, the kernel path.  Each run prints one JSON line: the median of five
-warm prefills (host clock, closed on ``torch.cuda.synchronize``) and the
-device time of one prefill from a ``torch.profiler`` trace, with the time
-of each kernel of the port (by ``chip_smoke.KERNEL_SYMBOLS``).  Compare
-the two checkouts only within one run of this script.
+8, the kernel path, through ``chip_smoke.prefill_runner`` (the prefill
+the profile phases time).  Each run prints one JSON line: the median of
+five warm prefills (host clock, closed on ``torch.cuda.synchronize``) and
+``chip_smoke._trace_summary`` of one traced prefill (device time, busy
+share, the time of each kernel of the port).  Compare the two checkouts
+only within one run of this script.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,48 +30,29 @@ ROOT = Path(__file__).resolve().parents[1]
 def worker(tree: Path, arch: str, S: int) -> dict:
     sys.path[:0] = [str(tree / "src")]
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.models import build_model
-    from repro_torch.train import make_batch
 
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import KERNEL_SYMBOLS, SEED
+    from chip_smoke import SEED, _trace_summary, prefill_runner, timed
 
     cfg = get_arch(arch)
     bundle = build_model(cfg)
     params = bundle.init(SEED, device="cuda")
-    toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
-                                      0)["tokens"]).cuda()
-
-    def prefill():
-        out = bundle.prefill_fn(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        return out
-
-    walls = []
+    prefill, _ = prefill_runner(cfg, bundle, params, S)
     with torch.no_grad():
         prefill()
         prefill()
-        for _ in range(5):
-            t0 = time.perf_counter()
-            prefill()
-            walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prefill()
-    dev, ours = 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            dev += e.self_device_time_total
-            for k, syms in KERNEL_SYMBOLS.items():
-                if any(s in e.key for s in syms):
-                    ours[k] = ours.get(k, 0.0) + e.self_device_time_total / 1e3
+        walls = [timed(prefill, 1) for _ in range(5)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = timed(prefill, 1)
     return {"tree": str(tree), "arch": arch, "prompt_len": S, "batch": 8,
             "prefill_warm_s_median": statistics.median(walls),
-            "prefill_warm_s": walls, "device_ms": dev / 1e3,
-            "kernels_ms": ours}
+            "prefill_warm_s": walls,
+            "prefill_trace": _trace_summary(prof, wall, 1)}
 
 
 def main() -> int:
