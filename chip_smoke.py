@@ -10,10 +10,14 @@ caught):
    parallel ``nvcc`` build of every kernel from ``src/repro_torch/kernels``;
 2. kernels against their plain PyTorch versions on the card, at the serving
    paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
-   yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K3 at
-   mamba2-1.3b's (bf16 on its mma route, f32 on the CUDA cores), K4 at
+   yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K1's paged
+   entry at the engine's decode shape (8 lanes at ragged positions over
+   pages of 16 scattered through a 288-page pool), K3 at mamba2-1.3b's
+   (bf16 on its mma route, f32 on the CUDA cores), K4 at
    recurrentgemma-9b's, plus ragged, small and edge cases (K1: wholly
-   masked splits, one lane; K2: Sq 1/127/129/200, windows ending on a tile
+   masked splits, one lane; K1 paged: pages of 4, an inactive lane, a
+   position on a page boundary, positions past the mapped span, a window;
+   K2: Sq 1/127/129/200, windows ending on a tile
    boundary, hd 16 and 64; K3: chunk 100, the smoke shape); at the path
    shapes two calls of each kernel must give the same bits; times of
    kernel (device time from a trace), plain version and, where one exists,
@@ -38,7 +42,14 @@ caught):
    32 tokens, so the 2048 window masks in prefill and the ring wraps in
    decode): per prefill K4 26 and K2 12 launches, per token K1 12;
 13. evict/resume on the card at mamba2-1.3b-smoke and
-   recurrentgemma-9b-smoke.
+   recurrentgemma-9b-smoke;
+14. the paged continuous-batching engine at full-width yi-9b
+   (``phase_engine``): 24 requests through RequestRouter ->
+   EngineServeTask -> FunkyRuntime, single-step and 8 steps fused, and on
+   a monitor with evict/resume every 4 iterations; identical tokens,
+   exact launch counts (paged K1 48 per decode step, K2 48 per prefill,
+   dense K1 none), OOM preemption and compaction, page-granular evicts,
+   kernel-path logits against the plain path's, one traced decode step.
 
 Each model's weights are freed before the next model's phases.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
@@ -89,7 +100,10 @@ PARITY_F32_TOL = 1e-3
 PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
-          "profile_recurrentgemma", "evict_new")
+          "profile_recurrentgemma", "evict_new", "engine")
+# K1's paged entry at the engine's decode shape: one position per lane,
+# between 100 and 575 (prompt 512 + 64 tokens)
+ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
 # the full-width serving paths: arch, prompt length, launches expected per
 # prefill and per decoded token (batch 8, 4 steps of 8 tokens)
 PATHS = {
@@ -222,7 +236,7 @@ def phase_env(state):
 # ---------------------------------------------------------------------------
 
 def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
-                softcap=0.0, time_it=False):
+                softcap=0.0, time_it=False, repeat=False):
     import torch
     import torch.nn.functional as F
 
@@ -240,9 +254,10 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
     err = check_close(f"K2 {tag}", out, ref, dtype)
     rec = {"case": tag, "shape": [B, S, Hq, Hkv, hd], "dtype": dtype,
            "max_abs_err": err, **kw}
-    if time_it:
+    if time_it or repeat:
         rec["bitwise_repeat"] = check_bitwise(
             f"K2 {tag}", lambda: flash_attention(q, k, v, **kw))
+    if time_it:
         # visible (q, k) pairs per head: causal rows see i+1 keys
         vis = sum(min(i + 1, window) if window else i + 1 for i in range(S)) \
             if causal else S * S
@@ -284,7 +299,7 @@ def _ring_kv_pos(cap, pos):
 
 
 def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
-                 softcap=0.0, time_it=False):
+                 softcap=0.0, time_it=False, repeat=False):
     import torch
     import torch.nn.functional as F
 
@@ -351,6 +366,128 @@ def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
             > nbytes / PEAK_BYTES_S else "bytes")
     log(phase="kernels", kernel="K1 decode_attention", **rec)
     state.setdefault("k1", {})[tag] = rec
+
+
+def _paged_inputs(B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
+                  inactive=(), n_sets=1, layers=2):
+    """K1's paged entry at the engine's layout: ``n_sets`` random pools of
+    NP pages stacked over ``layers`` (each page contiguous per layer; the
+    kernel reads the last layer's view, pages ``layers`` pages apart) and
+    one block table.  Lane b maps the pages positions 0..pos[b] need
+    (capped at max_blocks) to distinct pages drawn at random from the pool;
+    the rest of its row is -1.  Slots past pos[b] in its last page hold a
+    stale position pos[b] + 5; unmapped pages hold position 0, which only
+    a kernel that reads them would count."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 4)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    dt = getattr(torch, dtype)
+    kv_pos = np.zeros((NP, layers, ps), np.int32)
+    bt = np.full((B, max_blocks), -1, np.int32)
+    perm, nxt, kept, mapped = rng.permutation(NP), 0, 0, 0
+    for b in range(B):
+        if b in inactive:
+            continue
+        n = min(max_blocks, pos[b] // ps + 1)
+        bt[b, :n] = perm[nxt:nxt + n]
+        nxt += n
+        mapped += n
+        for lp, phys in enumerate(bt[b, :n]):
+            p = lp * ps + np.arange(ps)
+            kv_pos[phys] = np.where(p <= pos[b], p, pos[b] + 5)
+            kept += int((p <= pos[b]).sum())
+    if nxt > NP:
+        raise ValueError("pool too small for the case")
+    sets = []
+    for _ in range(n_sets):
+        q = torch.randn((B, 1, Hq, hd), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((NP, layers, ps, Hkv, hd), generator=g,
+                            device="cuda").to(dt)[:, -1] for _ in range(2))
+        sets.append((q, k, v))
+    kvp = torch.from_numpy(kv_pos).cuda()[:, -1]
+    return (sets, kvp, torch.from_numpy(bt).cuda(),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"), kept,
+            mapped)
+
+
+def _gather_dense(q, k, v, kvp, bt, posv):
+    """The reference engine's way, for comparison only: gather each lane's
+    pages into a dense cache (``gather_lane``, as the plain version does),
+    then dense K1 lane by lane (lanes have their own positions and kv_pos,
+    which the dense entry shares across its batch)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import gather_lane
+
+    outs = []
+    for b in range(q.shape[0]):
+        kd, vd, kv_pos = gather_lane(k, v, kvp, bt[b])
+        outs.append(decode_attention(q[b:b + 1], kd, vd, posv[b:b + 1],
+                                     kv_pos))
+    return torch.cat(outs)
+
+
+def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
+                inactive=(), window=0, time_it=False):
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_paged
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_paged_ref
+
+    sets, kvp, bt, posv, kept, mapped = _paged_inputs(
+        B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype, inactive,
+        n_sets=12 if time_it else 1)
+    q, k, v = sets[0]
+    kw = dict(window=window)
+    out = decode_attention_paged(q, k, v, kvp, bt, posv, **kw)
+    ref = decode_attention_paged_ref(q, k, v, kvp, bt, posv, **kw)
+    live = [b for b in range(B) if b not in inactive]
+    few = min(min(pos[b] + 1, max_blocks * ps) for b in live)
+    rec = {"case": tag, "shape": [B, ps, max_blocks, NP, Hq, Hkv, hd],
+           "pos": pos, "inactive": list(inactive), "dtype": dtype,
+           "kept_slots": kept, "mapped_pages": mapped, **kw}
+    if few < K1_FEW_SLOTS and dtype != "float32":
+        rec["plain_err"] = (out.float() - ref.float()).abs().max().item()
+        ref = decode_attention_paged_ref(q.float(), k.float(), v.float(),
+                                         kvp, bt, posv, **kw)
+        rec["plain"] = "float32 copies of the inputs"
+    torch.cuda.synchronize()
+    rec["max_abs_err"] = check_close(f"K1 paged {tag}", out, ref, dtype)
+    for b in inactive:
+        if out[b].abs().max().item() != 0.0:
+            raise AssertionError(f"K1 paged {tag}: inactive lane {b} is "
+                                 "not zeros")
+    rec["bitwise_repeat"] = check_bitwise(
+        f"K1 paged {tag}",
+        lambda: decode_attention_paged(q, k, v, kvp, bt, posv, **kw))
+    if time_it:
+        esz = q.element_size()
+        # k and v of the kept slots, kv_pos of the mapped pages, q, out,
+        # the table and the positions
+        nbytes = (2 * kept * Hkv * hd + 2 * q.numel()) * esz \
+            + 4 * (mapped * ps + bt.numel() + B)
+        flops = 4 * Hq * hd * kept
+        bound = max(flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S) * 1e3
+        args = [(q, k, v) for q, k, v in sets]
+        kern = lambda q, k, v: decode_attention_paged(  # noqa: E731
+            q, k, v, kvp, bt, posv, **kw)
+        rec.update(
+            ms=bench_ms(kern, args),
+            device_ms=device_ms(kern, args, expect="decode_split_kernel"),
+            plain_ms=bench_ms(lambda q, k, v: decode_attention_paged_ref(
+                q, k, v, kvp, bt, posv, **kw), args, reps=5),
+            gather_dense_ms=device_ms(lambda q, k, v: _gather_dense(
+                q, k, v, kvp, bt, posv), args),
+            library_ms=None, bytes=nbytes, flops=flops, bound_ms=bound,
+            bound_by="operations" if flops / PEAK_FLOP_S[dtype]
+            > nbytes / PEAK_BYTES_S else "bytes")
+    log(phase="kernels", kernel="K1 decode_attention_paged", **rec)
+    state.setdefault("k1p", {})[tag] = rec
 
 
 def _ssd_flops_bytes(B, S, H, P, N, cs, esz):
@@ -512,6 +649,10 @@ def phase_kernels(state):
     _flash_case(state, "path", 8, 512, 32, 4, 128, "bfloat16", time_it=True)
     _flash_case(state, "path_f32", 8, 512, 32, 4, 128, "float32",
                 time_it=True)
+    # ... and at the engine's admissions: one prompt of a bucket (128, 512)
+    for P in ENGINE["prompt_buckets"]:
+        _flash_case(state, f"engine_p{P}", 1, P, 32, 4, 128, "bfloat16",
+                    repeat=True)
     _flash_case(state, "window128", 2, 512, 32, 4, 128, "bfloat16",
                 window=128)
     _flash_case(state, "softcap30", 2, 512, 32, 4, 128, "bfloat16",
@@ -562,6 +703,21 @@ def phase_kernels(state):
                  "bfloat16")
     _decode_case(state, "hd256_b1", 1, 2048, 16, 1, 256, 2600, "bfloat16",
                  window=2048, time_it=True)
+    # K1's paged entry at the engine's decode shape: 8 lanes at ragged
+    # positions over pages of 16 scattered through a 288-page pool, table
+    # width 36 (prompt 512 + 64 tokens), unmapped tails; then page size 4,
+    # an inactive lane, a position on a page boundary, positions past the
+    # mapped span, a window
+    _paged_case(state, "path", 8, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS, "bfloat16", time_it=True)
+    _paged_case(state, "path_f32", 8, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS, "float32", time_it=True)
+    _paged_case(state, "ps4_inactive_boundary", 4, 4, 40, 160, 32, 4, 128,
+                [100, 64, 159, 12], "bfloat16", inactive=(1,))
+    _paged_case(state, "past_span", 3, 16, 8, 32, 32, 4, 128,
+                [127, 300, 4000], "bfloat16")
+    _paged_case(state, "window_hd256", 2, 16, 20, 48, 16, 1, 256,
+                [250, 319], "bfloat16", window=100)
     # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
     # 256; bf16 takes the mma route, f32 the CUDA cores), a ragged S, a
     # chunk that is not a multiple of the mma route's 64-row block, and the
@@ -594,13 +750,14 @@ def _free_cuda():
 
 def _wrappers():
     """The kernel wrappers by name; each counts its launches."""
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_paged)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
-    return {"K1": decode_attention, "K2": flash_attention, "K3": ssd_scan,
-            "K4": rglru_scan}
+    return {"K1": decode_attention, "K1p": decode_attention_paged,
+            "K2": flash_attention, "K3": ssd_scan, "K4": rglru_scan}
 
 
 def _serve(state, key):
@@ -984,6 +1141,360 @@ def phase_evict_new(state):
 
 
 # ---------------------------------------------------------------------------
+# 14. the paged continuous-batching engine at full width
+# ---------------------------------------------------------------------------
+
+# full-width yi-9b served through RequestRouter -> EngineServeTask ->
+# ContinuousBatchingEngine(paged) -> FunkyCL -> Monitor: 24 requests of
+# 64-512 prompt tokens and 8-64 new tokens (seed 0), 8 lanes, pages of 16,
+# prompt buckets 128 and 512; a pool of ENGINE["pool_pages"] pages (the
+# worst case is 8 x 37) so that lanes are OOM-preempted and the pool
+# compacts
+ENGINE = dict(arch="yi-9b", slots=8, page_size=16, prompt_buckets=(128, 512),
+              prompt_len=512, max_new_tokens=64, pool_pages=160,
+              n_requests=24)
+
+
+def engine_requests(vocab):
+    """The engine phase's workload, from seed 0."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(SEED)
+    out = []
+    for i in range(ENGINE["n_requests"]):
+        n_prompt = int(rng.integers(64, 513))
+        n_new = int(rng.integers(8, 65))
+        out.append(ServeRequest(
+            rid=f"q{i:02d}", prompt=rng.integers(0, vocab, n_prompt).astype(
+                np.int32), max_new_tokens=n_new))
+    return out
+
+
+def _engine_kw():
+    return dict(slots=ENGINE["slots"], prompt_len=ENGINE["prompt_len"],
+                max_new_tokens=ENGINE["max_new_tokens"],
+                page_size=ENGINE["page_size"],
+                pool_pages=ENGINE["pool_pages"],
+                prompt_buckets=ENGINE["prompt_buckets"])
+
+
+def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device):
+    """Every request completed with its token count; the kernels the path
+    launched, exactly: paged K1 once a layer per decode step run, K2 once a
+    layer per prefill run (recomputations included), nothing else."""
+    want = {r.rid: min(r.max_new_tokens, ENGINE["max_new_tokens"])
+            for r in engine_requests(cfg.vocab_size)}
+    got = {rid: len(t) for rid, t in tokens.items()}
+    if got != want:
+        raise AssertionError(f"engine {tag}: token counts {got}, expected "
+                             f"{want}")
+    if any(not 0 <= t < cfg.vocab_size for ts in tokens.values()
+           for t in ts):
+        raise AssertionError(f"engine {tag}: token out of range")
+    pe = eng.program_execs
+    steps = pe.get("decode_step", 0) + fuse * pe.get("decode_multi", 0)
+    prefills = sum(n for p, n in pe.items() if p.startswith("prefill_admit"))
+    L = cfg.num_layers
+    expected = {"K1": 0, "K1p": L * steps, "K2": L * prefills, "K3": 0,
+                "K4": 0}
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"engine {tag}: launch counts {launches}, "
+                             f"expected {expected} ({steps} decode steps, "
+                             f"{prefills} prefills)")
+    return steps, prefills
+
+
+def _engine_stats(eng, completed, wall, steps, prefills, launches):
+    """What the run reports: latency quantiles, throughput, preemptions,
+    compactions, the host/device split."""
+    import numpy as np
+
+    ttft = [c.ttft_s for c in completed]
+    tbt = [t for c in completed for t in c.tbts]
+    n_tok = sum(len(c.tokens) for c in completed)
+    decode_prog = "decode_multi" if "decode_multi" in eng.program_execs \
+        else "decode_step"
+    return {"requests": len(completed), "tokens": n_tok, "wall_s": wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "tbt_p50_s": float(np.percentile(tbt, 50)),
+            "tokens_per_s_e2e": n_tok / wall,
+            "decode_tokens_per_s": (n_tok - len(completed))
+            / eng.program_device_s[decode_prog],
+            "decode_steps": steps, "prefills": prefills,
+            "iterations": eng.iterations, "peak_active": eng.peak_active,
+            "preemptions": eng.preemptions,
+            "auto_compactions": eng.auto_compactions,
+            "bt_delta_execs": eng.bt_delta_execs,
+            "bt_full_writes": eng.bt_full_writes,
+            "program_execs": eng.program_execs,
+            "program_device_s": eng.program_device_s,
+            "host_device_split": eng.host_device_split(),
+            "launches": launches}
+
+
+def _engine_served(arch, device, fuse, async_depth, tag):
+    """One run through the runtime: router -> EngineServeTask -> engine.
+    Returns ({rid: tokens}, stats)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (FunkyRuntime, SliceAllocator, TaskImage,
+                                  TaskStatus)
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.scaling.serving import reset_router
+
+    cfg = get_arch(arch)
+    name = f"engine-{tag}"
+    im = TaskImage(name=name, kind="engine-serve", arch=arch,
+                   global_batch=ENGINE["slots"],
+                   prompt_len=ENGINE["prompt_len"],
+                   max_new_tokens=ENGINE["max_new_tokens"],
+                   page_size=ENGINE["page_size"],
+                   kv_pool_pages=ENGINE["pool_pages"],
+                   prompt_buckets=ENGINE["prompt_buckets"],
+                   total_steps=10 ** 9, seed=SEED, fuse_steps=fuse,
+                   async_depth=async_depth)
+    reg = MetricsRegistry()
+    router = reset_router(name)
+    router.registry = reg
+    rt = FunkyRuntime("node0", SliceAllocator("node0", 1,
+                                              mem_cap_bytes=64 << 30,
+                                              device=device), telemetry=reg)
+    wrappers = _wrappers()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rt.create("e", im)
+    rec = rt.tasks["e"]
+    rt.start("e")
+    deadline = time.time() + 300
+    while rec.status is TaskStatus.CREATED and time.time() < deadline:
+        time.sleep(0.01)
+    if rec.status is not TaskStatus.RUNNING:
+        raise RuntimeError(f"engine task ended {rec.status}: {rec.error!r}")
+    # the weights are drawn; the path starts with the first request
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    for r in engine_requests(cfg.vocab_size):
+        router.submit(r)
+    router.close()
+    status = rt.wait("e", timeout=900)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if status is not TaskStatus.DONE:
+        raise RuntimeError(f"engine task ended {status}: {rec.error!r}")
+    eng = rec.task.engine
+    tokens = {rid: list(c.tokens) for rid, c in router.completed.items()}
+    steps, prefills = _check_engine_run(tag, cfg, eng, tokens, fuse,
+                                        launches, device)
+    stats = _engine_stats(eng, list(router.completed.values()), wall,
+                          steps, prefills, launches)
+    if device == "cuda":
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rt.delete("e")
+    del rec, rt, eng
+    if device == "cuda":
+        _free_cuda()
+    return tokens, stats
+
+
+def _paged_logit_check(eng, mon, cfg):
+    """One decode step of every lane on the engine's own pool, on the
+    paged kernel path and on ``impl="naive"`` (gather + sdpa_naive), on
+    copies of the pool; max|logit diff| / max|logit| over the active
+    lanes.  Then the kernel path's step again, warm: timed, and traced
+    (device time, busy share, launches).  These launches are comparisons
+    and measurements: the counts are restored."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    saved = {k: w.launches for k, w in _wrappers().items()}
+    buf = {n: mon.buffers.get(n).device_value
+           for n in ("params", "toks", "pos", "block_table", "kv_pool")}
+    active = buf["block_table"][:, 0] >= 0
+    out = {}
+    with torch.no_grad():
+        for impl in ("kernel", "naive"):
+            b = build_model(cfg, cache_margin=0, decode_impl=impl)
+            pool = tree_map(torch.clone, buf["kv_pool"])
+            logits, _ = b.decode_paged_fn(buf["params"], buf["toks"][:, 0],
+                                          buf["pos"], pool,
+                                          buf["block_table"])
+            out[impl] = logits.float()[active]
+            if impl == "kernel":
+                def step():
+                    b.decode_paged_fn(buf["params"], buf["toks"][:, 0],
+                                      buf["pos"], pool, buf["block_table"])
+                step_s = timed(step, 4) / 4
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    wall = timed(step, 3)
+                trace = _trace_summary(prof, wall, 3)
+            del pool
+    for k, w in _wrappers().items():
+        w.launches = saved[k]
+    ref = out["naive"]
+    rel = ((out["kernel"] - ref).abs().max() / ref.abs().max()).item()
+    agree = (out["kernel"].argmax(-1) == ref.argmax(-1)).float().mean()
+    return {"logit_rel_err": rel, "token_agreement": agree.item(),
+            "lanes": int(active.sum()), "bound": LOGIT_REL_TOL,
+            "decode_step_warm_s": step_s, "decode_trace": trace}
+
+
+def _prefill_logit_check(eng, mon, cfg):
+    """One admission's prefill per prompt bucket, at the engine's shape
+    (batch 1, the first request of the workload that the bucket takes,
+    right-padded as the engine pads it), on the engine's weights: the
+    kernel path (K2, one launch a layer) against ``prefill_impl="naive"``,
+    max|logit diff| / max|logit| of the first token's logits.  These
+    launches are comparisons: the counts are restored."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import build_model
+
+    saved = {k: w.launches for k, w in _wrappers().items()}
+    params = mon.buffers.get("params").device_value
+    dev = mon.buffers.get("toks").device_value.device
+    out = []
+    with torch.no_grad():
+        for P in eng.buckets:
+            req = next(r for r in engine_requests(cfg.vocab_size)
+                       if eng._pick_bucket(len(r.prompt)) == P)
+            prompt = torch.as_tensor(eng._pad_prompt(req.prompt, P),
+                                     device=dev)
+            logits = {}
+            for impl in ("kernel", "naive"):
+                b = build_model(cfg, cache_margin=0, prefill_impl=impl)
+                n0 = flash_attention.launches
+                logits[impl] = b.prefill_fn(params,
+                                            {"tokens": prompt})[0].float()
+                n = flash_attention.launches - n0
+                if n != (cfg.num_layers if impl == "kernel" else 0):
+                    raise AssertionError(f"prefill {P} ({impl}): {n} K2 "
+                                         "launches")
+            ref = logits["naive"]
+            out.append({"bucket": P, "rid": req.rid,
+                        "prompt_tokens": len(req.prompt),
+                        "logit_rel_err": ((logits["kernel"] - ref).abs().max()
+                                          / ref.abs().max()).item(),
+                        "same_token": bool(logits["kernel"].argmax(-1)
+                                           == ref.argmax(-1)),
+                        "bound": LOGIT_REL_TOL})
+    for k, w in _wrappers().items():
+        w.launches = saved[k]
+    return out
+
+
+def _engine_evicting(arch, device, logit_at=6, every=4):
+    """Run (c): the same workload through the engine on a monitor, evicted
+    and resumed every ``every`` iterations while lanes are in flight
+    (``equivalence.run_transcript``); at iteration ``logit_at``, one
+    paged-kernel-vs-plain logit check of a decode step and one of each
+    bucket's prefill."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.equivalence import run_transcript
+
+    cfg = get_arch(arch)
+    wrappers = _wrappers()
+    evicts, checks, prefill_checks = [], [], []
+
+    def factory():
+        mon = Monitor("engine-c", SliceAllocator("node0", 1,
+                                                 mem_cap_bytes=64 << 30,
+                                                 device=device),
+                      telemetry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(arch, FunkyCL(mon), seed=SEED,
+                                       engine_id="engine-c", **_engine_kw())
+        eng.setup()
+        for w in wrappers.values():
+            w.launches = 0
+        return mon, eng
+
+    def hook(eng, mon, i):
+        if i == logit_at and device == "cuda":
+            checks.append(_paged_logit_check(eng, mon, cfg))
+            prefill_checks.extend(_prefill_logit_check(eng, mon, cfg))
+        if i % every == 0 and eng.active_count:
+            st = mon.evict()
+            st["at_iteration"] = i
+            st.update({f"resume_{k}": v for k, v in mon.resume().items()})
+            evicts.append(st)
+
+    t0 = time.perf_counter()
+    tokens, eng = run_transcript(factory,
+                                 lambda: engine_requests(cfg.vocab_size),
+                                 step_hook=hook)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps, prefills = _check_engine_run("evict_resume", cfg, eng, tokens, 1,
+                                        launches, device)
+    stats = _engine_stats(eng, list(eng.completed.values()), wall, steps,
+                          prefills, launches)
+    del eng
+    if device == "cuda":
+        _free_cuda()
+    return tokens, stats, evicts, checks, prefill_checks
+
+
+def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
+    """Full-width yi-9b (bf16, random weights from seed 0) served by the
+    paged engine three ways: (a) single-step decode and (b) 8 steps fused
+    per EXECUTE with one EXECUTE in flight, both through
+    RequestRouter -> EngineServeTask -> FunkyRuntime; (c) run (a) on a
+    monitor with evict/resume every 4 iterations.  Gates: every request
+    completes with its token count, the three transcripts are identical,
+    exact launch counts, at least one OOM preemption and one compaction,
+    an evict that saves fewer pages than the pool, and the logits of a
+    paged decode step and of each bucket's prefill (K2 at batch 1) on the
+    kernel path within LOGIT_REL_TOL of the plain path's."""
+    a_tok, a = _engine_served(arch, device, 1, 0, "a")
+    log(phase="engine", run="a_single_step", card=state.get("card"), **a)
+    b_tok, b = _engine_served(arch, device, 8, 1, "b")
+    log(phase="engine", run="b_fused8_async1", card=state.get("card"), **b)
+    c_tok, c, evicts, checks, prefill_checks = _engine_evicting(arch, device)
+    log(phase="engine", run="c_evict_resume_every4", card=state.get("card"),
+        evicts=len(evicts), evict_first=evicts[0] if evicts else None,
+        evict_last=evicts[-1] if evicts else None, logit_check=checks,
+        prefill_logit_check=prefill_checks, **c)
+    for tag, tok in (("b", b_tok), ("c", c_tok)):
+        if tok != a_tok:
+            bad = sorted(r for r in a_tok if tok.get(r) != a_tok[r])
+            raise AssertionError(f"engine run {tag}: tokens differ from run "
+                                 f"a for {bad}")
+    if a["preemptions"] < 1 or a["auto_compactions"] < 1:
+        raise AssertionError(
+            f"engine run a: {a['preemptions']} preemptions, "
+            f"{a['auto_compactions']} compactions (want >= 1 each: shrink "
+            "the pool)")
+    if not any(0 < e["paged_saved_pages"] < e["paged_total_pages"]
+               for e in evicts):
+        raise AssertionError("no evict saved fewer pages than the pool")
+    if device == "cuda" and (not checks or checks[0]["logit_rel_err"]
+                             > LOGIT_REL_TOL):
+        raise AssertionError(f"paged kernel vs plain logits: {checks}")
+    if device == "cuda" and (
+            len(prefill_checks) != len(ENGINE["prompt_buckets"])
+            or any(p["logit_rel_err"] > LOGIT_REL_TOL
+                   for p in prefill_checks)):
+        raise AssertionError(f"prefill kernel vs plain logits: "
+                             f"{prefill_checks}")
+    state.setdefault("launches", {})["engine"] = a["launches"]
+    state["engine"] = {"a": a, "b": b, "c": c}
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -1013,6 +1524,16 @@ def kernel_line(state):
             "event_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_device_ms")})
+    r = state["k1p"]["path"]
+    rows.append({
+        "name": "decode_attention_paged", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
+        "launches": state["launches"]["engine"]["K1p"],
+        "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+        "event_ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "gather_dense_ms": r["gather_dense_ms"]})
     return {"kernels": rows}
 
 

@@ -10,12 +10,14 @@ from repro_torch.core.requests import (Completion, Direction, FunkyRequest,
 from repro_torch.core.runtime import FunkyRuntime, TaskRecord, TaskStatus
 from repro_torch.core.state import (Buffer, BufferState, BufferTable,
                                     GuestState, TaskSnapshot, tree_bytes)
-from repro_torch.core.tasks import GuestTask, ServeTask, TaskImage
+from repro_torch.core.tasks import (EngineServeTask, GuestTask, ServeTask,
+                                    TaskImage)
 from repro_torch.core.vslice import SliceAllocator, VSlice
 
 __all__ = [
     "Buffer", "BufferState", "BufferTable", "Completion",
-    "DeviceMemoryExceeded", "Direction", "FunkyCL", "FunkyRequest",
+    "DeviceMemoryExceeded", "Direction", "EngineServeTask", "FunkyCL",
+    "FunkyRequest",
     "FunkyRuntime", "GuestState", "GuestTask", "Monitor", "MonitorError",
     "MonitorState", "NoSliceAvailable", "Program", "ProgramCache",
     "RequestKind", "ServeTask", "SliceAllocator", "TaskImage", "TaskRecord",

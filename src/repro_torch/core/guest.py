@@ -23,7 +23,7 @@ tracking.
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -72,10 +72,14 @@ class FunkyCL:
     # ------------------------------------------------------------------
     # Buffers & transfers
     # ------------------------------------------------------------------
-    def clCreateBuffer(self, buff_id: str, spec: Any) -> str:
-        """Register a buffer; ``spec`` is a tree of meta tensors."""
+    def clCreateBuffer(self, buff_id: str, spec: Any,
+                       paged: bool = False) -> str:
+        """Register a buffer; ``spec`` is a tree of meta tensors.
+        ``paged=True`` registers a page pool (every leaf's axis 0 is the
+        page axis): EXECUTEs can then report ``dirty_pages`` so evict and
+        checkpoint save only the pages actually written."""
         req = FunkyRequest(kind=RequestKind.MEMORY, buff_id=buff_id,
-                           spec=spec)
+                           spec=spec, paged=paged)
         self._track(self._monitor.submit(req))
         return buff_id
 
@@ -96,16 +100,20 @@ class FunkyCL:
                         out_buffs: Sequence[str],
                         const_args: tuple = (),
                         donate: bool = False,
+                        dirty_pages: Optional[dict] = None,
                         span: Any = None) -> Completion:
         """Async kernel launch; kernel args travel with the EXECUTE request
         (clSetKernelArg coalescing, paper §4).  ``donate=True`` donates
         inputs that are also outputs: the program may write them in place
         (no device copy) — register the program with matching
-        donate_argnums so the first EXECUTE hits the warm entry."""
+        donate_argnums so the first EXECUTE hits the warm entry.
+        ``dirty_pages`` maps a paged out buffer to the page ids this launch
+        writes."""
         req = FunkyRequest(
             kind=RequestKind.EXECUTE, program_id=program_id,
             in_buffs=tuple(in_buffs), out_buffs=tuple(out_buffs),
-            const_args=tuple(const_args), donate=donate, span=span)
+            const_args=tuple(const_args), donate=donate,
+            dirty_pages=dirty_pages, span=span)
         return self._track(self._monitor.submit(req))
 
     def clFinish(self) -> None:

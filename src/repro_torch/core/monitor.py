@@ -287,15 +287,13 @@ class Monitor:
                     f"task {self.task_id}: unknown/foreign buffer {i!r}")
 
     def _do_memory(self, req: FunkyRequest):
-        if req.paged:
-            raise MonitorError("paged buffers are not ported yet")
         new_bytes = tree_bytes(req.spec)
         cap = self.vslice.mem_cap_bytes if self.vslice else 0
         if self.buffers.total_bytes() + new_bytes > cap:
             raise DeviceMemoryExceeded(
                 f"vSlice memory cap {cap} exceeded by buffer "
                 f"{req.buff_id!r} (+{new_bytes} bytes)")
-        self.buffers.register(req.buff_id, req.spec)
+        self.buffers.register(req.buff_id, req.spec, paged=req.paged)
         return req.buff_id
 
     def _do_transfer(self, req: FunkyRequest):
@@ -340,8 +338,6 @@ class Monitor:
             self.chaos.raise_if("monitor.execute",
                                 key=f"{self.task_id}:{req.program_id}")
         self._validate_buffs(list(req.in_buffs) + list(req.out_buffs))
-        if req.dirty_pages:
-            raise MonitorError("paged buffers are not ported yet")
         if req.program_id not in self.programs:
             raise MonitorError(f"program {req.program_id!r} not registered")
         key = (req.program_id, req.in_buffs, req.out_buffs, req.donate,
@@ -409,7 +405,10 @@ class Monitor:
             # instead of re-fingerprinting forever
             stable = hit or same_avals(
                 self.buffers.get(buff_id).device_value, val)
-            self.buffers.on_execute_write(buff_id, val, stable=stable)
+            dp = (None if req.dirty_pages is None
+                  else req.dirty_pages.get(buff_id))
+            self.buffers.on_execute_write(buff_id, val, stable=stable,
+                                          dirty_pages=dp)
         if not hit:
             # keyed on the PRE-execute tokens: stable writes leave them
             # unchanged (next call hits), while a shape-changing write

@@ -6,6 +6,9 @@ Table 3 that this slice ports:
     evict <cid>      save device context to host RAM, free the slot
     resume <cid>     re-acquire a slot and restore the context
 
+``kill`` runs the task's ``on_kill`` hook (a serving replica hands its
+unfinished requests back to the router).
+
 (checkpoint, restore, replicate and update come with the checkpoint and
 orchestration slices.)  One runtime runs per worker node; each task gets a
 driver thread (the guest vCPU) that calls ``task.step()`` through a
@@ -152,6 +155,10 @@ class FunkyRuntime:
             rec.driver.join(timeout=30)
         if rec.monitor.state is MonitorState.RUNNING:
             rec.monitor.vfpga_exit()
+        try:
+            rec.task.on_kill()
+        except Exception:  # noqa: BLE001 - best-effort cleanup hook
+            pass
         rec.status = TaskStatus.REMOVED
         rec.log("kill")
 

@@ -15,7 +15,10 @@ buffers in place.  So every crossing between host and device *copies*:
 ``to_host`` and ``to_device`` never alias (on a CPU device ``.numpy()`` and
 ``torch.from_numpy`` would share memory, and an in-place EXECUTE would
 silently rewrite the saved host copy).  Host copies are CPU tensors.
-Page-granular dirtiness for paged buffers comes with the paged engine.
+
+Paged buffers (the engine's KV pool: every leaf's axis 0 is the page
+axis) track dirtiness per page: evict and checkpoint pull only the pages
+written since the last host sync and merge them into the host copy.
 """
 
 from __future__ import annotations
@@ -94,10 +97,62 @@ class Buffer:
     nbytes: int = 0
     version: int = 0                    # bumped on every device-side write
     spec_token: int = 0                 # bumped only when shapes may change
+    # page-granular dirtiness (paged buffers only): every leaf's axis 0 is
+    # the page axis; ``page_dirty`` holds ids written since the last host
+    # sync, and ``None`` means "unknown — treat every page as dirty"
+    paged: bool = False
+    page_dirty: Optional[set] = None
+    # True while host_value is shared with a TaskSnapshot: the next merge
+    # copies the host leaves before patching them
+    host_shared: bool = False
 
     def __post_init__(self):
         if not self.nbytes:
             self.nbytes = tree_bytes(self.spec)
+
+    @property
+    def n_pages(self) -> int:
+        leaves = tree_leaves(self.device_value if self.device_value
+                             is not None else self.spec)
+        return int(leaves[0].shape[0]) if leaves else 0
+
+    def mark_pages_dirty(self, page_ids) -> None:
+        if page_ids is None:
+            self.page_dirty = None          # degraded to whole-buffer dirty
+        elif self.page_dirty is not None:
+            self.page_dirty.update(int(p) for p in page_ids)
+
+    def merge_dirty_pages_to_host(self) -> int:
+        """Pull only the dirty pages d2h and merge them into the host copy.
+
+        Returns the bytes actually saved; falls back to a full ``to_host``
+        when no host copy exists or dirtiness is unknown.  Clears the dirty
+        set: the host copy is current afterwards.
+        """
+        n = self.n_pages
+        if (not self.paged or self.host_value is None
+                or self.page_dirty is None or n == 0):
+            self.host_value = to_host(self.device_value)
+            self.host_shared = False    # fresh tensors, nothing shared
+            saved = self.nbytes
+        elif not self.page_dirty:
+            saved = 0
+        else:
+            ids = torch.as_tensor(sorted(self.page_dirty), dtype=torch.int64)
+            cow = self.host_shared
+
+            def merge(host_leaf, dev_leaf):
+                out = torch.as_tensor(host_leaf).clone() if cow \
+                    else host_leaf
+                out[ids] = dev_leaf[ids.to(dev_leaf.device)].to("cpu")
+                return out
+
+            self.host_value = tree_map(merge, self.host_value,
+                                       self.device_value)
+            self.host_shared = False
+            saved = int(round(self.nbytes * len(ids) / n))
+        self.page_dirty = set() if self.paged else None
+        return saved
 
 
 class BufferTable:
@@ -110,10 +165,11 @@ class BufferTable:
         self._unsynced: set = set()
 
     # -- registry -------------------------------------------------------------
-    def register(self, buff_id: str, spec: Any) -> Buffer:
+    def register(self, buff_id: str, spec: Any,
+                 paged: bool = False) -> Buffer:
         if buff_id in self._buffers:
             raise KeyError(f"buffer {buff_id!r} already exists")
-        b = Buffer(buff_id=buff_id, spec=spec)
+        b = Buffer(buff_id=buff_id, spec=spec, paged=paged)
         self._buffers[buff_id] = b
         return b
 
@@ -141,26 +197,36 @@ class BufferTable:
         b.state = BufferState.SYNC
         b.nbytes = tree_bytes(device_value)
         b.version += 1
+        if b.paged:
+            b.page_dirty = set()        # host copy just became current
+            b.host_shared = True        # the guest's tree: copy, not patch
         self._unsynced.add(buff_id)
 
     def on_d2h(self, buff_id: str) -> Any:
         b = self.get(buff_id)
-        b.host_value = to_host(b.device_value)
+        if b.paged:
+            b.merge_dirty_pages_to_host()
+        else:
+            b.host_value = to_host(b.device_value)
         b.state = BufferState.SYNC
         return b.host_value
 
     def on_execute_write(self, buff_id: str, device_value: Any,
-                         stable: bool = False):
+                         stable: bool = False, dirty_pages=None):
         """``stable=True`` marks a write whose shapes are known to match the
         previous contents (same program, same signature): the per-leaf byte
         walk is skipped and the spec token is preserved, so the monitor's
-        execute-signature cache stays valid."""
+        execute-signature cache stays valid.  ``dirty_pages`` names the
+        pages a paged buffer's write touched; omitting it on a paged buffer
+        degrades that buffer to whole-buffer dirtiness."""
         b = self.get(buff_id)
         b.device_value = device_value
         b.state = BufferState.DIRTY
         if not stable:
             b.nbytes = tree_bytes(device_value)
             b.spec_token += 1
+        if b.paged:
+            b.mark_pages_dirty(dirty_pages)
         b.version += 1
         self._unsynced.add(buff_id)
 
@@ -181,20 +247,37 @@ class BufferTable:
 
     def evict_device_state(self) -> dict:
         """Save DIRTY buffers to host, drop all device references.
-        Returns stats {saved_bytes, skipped_bytes, n_dirty}."""
+
+        Paged buffers save only their dirty pages (merged into the prior
+        host copy); the clean remainder counts as skipped, as a SYNC buffer
+        does.  Returns stats {saved_bytes, skipped_bytes, n_dirty,
+        paged_saved_pages, paged_total_pages}.
+        """
         saved = skipped = n_dirty = 0
+        paged_saved = paged_total = 0
         for b in self._buffers.values():
             if b.state is BufferState.DIRTY:
-                b.host_value = to_host(b.device_value)
+                if b.paged:
+                    n = b.n_pages
+                    n_dirty_pages = (n if b.page_dirty is None
+                                     else len(b.page_dirty))
+                    part = b.merge_dirty_pages_to_host()
+                    saved += part
+                    skipped += b.nbytes - part
+                    paged_saved += n_dirty_pages
+                    paged_total += n
+                else:
+                    b.host_value = to_host(b.device_value)
+                    saved += b.nbytes
                 b.state = BufferState.SYNC
-                saved += b.nbytes
                 n_dirty += 1
             else:
                 skipped += b.nbytes
             b.device_value = None
         self._unsynced.clear()          # every device ref was just dropped
         return {"saved_bytes": saved, "skipped_bytes": skipped,
-                "n_dirty": n_dirty}
+                "n_dirty": n_dirty, "paged_saved_pages": paged_saved,
+                "paged_total_pages": paged_total}
 
     def restore_device_state(self, device: torch.device) -> dict:
         """Re-materialize device buffers from (copies of) the host copies."""
@@ -203,16 +286,25 @@ class BufferTable:
             if b.host_value is not None:
                 b.device_value = to_device(b.host_value, device)
                 b.state = BufferState.SYNC
+                if b.paged:
+                    b.page_dirty = set()    # device mirrors the host copy
                 restored += b.nbytes
                 self._unsynced.add(b.buff_id)
         return {"restored_bytes": restored}
 
     def host_snapshot(self) -> dict:
-        """Host-side view for checkpointing: {buff_id: host tree}.  Host
-        copies are replaced, never written in place, so sharing them with
-        the snapshot is safe."""
-        return {i: b.host_value for i, b in self._buffers.items()
-                if b.host_value is not None}
+        """Host-side view for checkpointing: {buff_id: host tree}.
+
+        The snapshot shares the live host copies (no copy).  Only a paged
+        buffer's dirty-page merge writes a host copy in place, so paged
+        buffers are flagged to copy their host leaves on the next merge."""
+        out = {}
+        for i, b in self._buffers.items():
+            if b.host_value is not None:
+                out[i] = b.host_value
+                if b.paged:
+                    b.host_shared = True
+        return out
 
     def versions(self) -> dict:
         return {i: b.version for i, b in self._buffers.items()}

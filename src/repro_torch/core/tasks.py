@@ -8,13 +8,16 @@ driver thread calls ``step()`` in a loop; all orchestration (evict/resume)
 lands between steps plus a monitor-level SYNC — the paper's
 request-boundary preemption model.
 
-The serving guest ``ServeTask`` is ported; training and the
-continuous-batching engine come with their slices.
+Ported: ``ServeTask`` (one fixed batch over reserved caches) and
+``EngineServeTask`` (a continuous-batching engine replica fed by the
+service's ``RequestRouter``); training comes with its slice.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -30,17 +33,27 @@ class TaskImage:
     """The "OCI image" of a task: guest binary + config."""
 
     name: str
-    kind: str                       # serve (train | engine-serve: later)
+    kind: str                       # serve | engine-serve (train: later)
     arch: str = "yi-9b-smoke"
-    global_batch: int = 4
+    global_batch: int = 4           # engine-serve: decode lanes
     total_steps: int = 8
     tokens_per_step: int = 4        # serve: decode tokens per step() call
     prompt_len: int = 16
     seed: int = 0
+    # engine-serve: per-request cap and paged KV memory (None/() keep the
+    # engine's defaults)
+    max_new_tokens: int = 8
+    page_size: int = 8
+    kv_pool_pages: Optional[int] = None
+    prompt_buckets: tuple = ()      # e.g. (128, 512); empty = (prompt_len,)
+    fuse_steps: int = 1             # greedy steps per decode EXECUTE
+    async_depth: int = 0            # decode EXECUTEs submitted ahead
 
     def instantiate(self) -> "GuestTask":
         if self.kind == "serve":
             return ServeTask(self)
+        if self.kind == "engine-serve":
+            return EngineServeTask(self)
         raise NotImplementedError(f"task kind {self.kind!r} is not ported yet")
 
 
@@ -56,6 +69,9 @@ class GuestTask:
 
     def teardown(self, cl: FunkyCL, gs: GuestState) -> None:
         pass
+
+    def on_kill(self) -> None:
+        """Graceful-kill hook, run once the task's driver thread stopped."""
 
 
 class ServeTask(GuestTask):
@@ -151,3 +167,78 @@ class ServeTask(GuestTask):
         gs.user["last_token"] = cl.read_buffer("token").tolist()
         for pid in self.PROGRAMS:
             cl.clReleaseProgram(pid)
+
+
+class EngineServeTask(GuestTask):
+    """Per-request serving replica: a continuous-batching engine pulling
+    admissible requests from the service's ``RequestRouter`` and pushing
+    engine-reported completions back.
+
+    One ``step()`` = one engine iteration, so orchestration commands land
+    between iterations and the in-flight batch is preemptible at token
+    boundaries.  The task finishes when the router is closed and every
+    lane has drained.  ``drain()`` stops admissions and finishes the held
+    sequences, so scale-in needs no requeue.
+    """
+
+    def __init__(self, image: TaskImage):
+        self.image = image
+        self._engine = None
+        self._draining = False
+
+    @property
+    def engine(self):
+        return self._engine
+
+    def setup(self, cl: FunkyCL, gs: GuestState, restore: bool) -> None:
+        from repro_torch.scaling.serving import get_router
+        from repro_torch.serve.engine import ContinuousBatchingEngine
+
+        im = self.image
+        self._router = get_router(im.name, registry=cl._monitor.telemetry)
+        self._engine = ContinuousBatchingEngine(
+            im.arch, cl, slots=im.global_batch, prompt_len=im.prompt_len,
+            max_new_tokens=im.max_new_tokens, service=im.name,
+            engine_id=cl._monitor.task_id, seed=im.seed,
+            page_size=im.page_size, pool_pages=im.kv_pool_pages,
+            prompt_buckets=im.prompt_buckets or None,
+            fuse_steps=im.fuse_steps, async_depth=im.async_depth)
+        self._engine.setup(restore=restore)
+
+    def step(self, cl: FunkyCL, gs: GuestState) -> bool:
+        moved = self._engine.pump(self._router, admit=not self._draining)
+        gs.step += 1
+        if self._draining and self._engine.idle:
+            return True                  # drained: exit at request boundary
+        if not moved:
+            if self._router.closed and self._router.pending_count() == 0:
+                return True
+            time.sleep(0.002)            # idle poll; don't spin the monitor
+        return gs.step >= self.image.total_steps
+
+    def drain(self) -> None:
+        self._draining = True
+
+    @property
+    def drained(self) -> bool:
+        return self._engine is None or self._engine.idle
+
+    def program_ids(self) -> tuple:
+        return self._engine.program_ids() if self._engine is not None else ()
+
+    def teardown(self, cl: FunkyCL, gs: GuestState) -> None:
+        gs.user["completed"] = len(self._engine.completed)
+        for pid in self._engine.program_ids():
+            cl.clReleaseProgram(pid)
+
+    def on_kill(self) -> None:
+        # scale-in removed this replica: report what already finished, then
+        # hand unfinished sequences back to the router for another replica
+        # (greedy decode: the client sees the same tokens again)
+        if self._engine is None:
+            return
+        for rec in self._engine.drain_completions():
+            self._router.complete(rec)
+        reqs = self._engine.evacuate()
+        if reqs:
+            self._router.requeue(reqs)

@@ -60,6 +60,23 @@
 //    peers are summed in rank order and nothing is atomic, so two calls on
 //    the same inputs give the same bits; there is no second launch and no
 //    global scratch.
+//
+// Paged entry (decode_attention_paged_fwd), the serving engine's decode:
+// the same function as gathering each lane's cache through its block-table
+// row (src/repro/serve/kvcache.py:gather_lane_cache) and running the dense
+// decode on it, computed without the gather.  k/v pools (NP, ps, Hkv, hd)
+// and kv_pos pool (NP, ps) are one layer's views of the stacked pool: a
+// page is ps contiguous rows, pages lie kv_pstride (pos_pstride) elements
+// apart.  block_table (B, max_blocks) maps a lane's logical page to a
+// physical one (-1 unmapped); pos (B,) is each lane's query position.  The
+// split runs over the logical cap max_blocks * ps, as the dense split runs
+// over the ring; each CTA first stages the table entries of its slot range
+// in shared memory, and then a slot's row is phys * kv_pstride + (j % ps)
+// rows: the keep-bit pass reads kv_pos through it, the loads read k/v
+// through it.  An unmapped page's slots are never kept and never read, so
+// a lane with bt[b, 0] < 0 (inactive) keeps no slot and writes zeros, and
+// a pos past the mapped span needs no check.  Everything after the keep
+// bits (ring, products, softmax, cluster merge) is the dense kernel's.
 #include <math.h>
 
 #include <cooperative_groups.h>
@@ -78,6 +95,7 @@ constexpr int GMAX = 16;              // most query heads per kv head
 constexpr int MAX_CLUSTER = 16;       // CTAs per (kv head, lane)
 constexpr int MAX_CHUNK = 32768;      // slots per CTA (one keep bit each)
 constexpr int CHUNK_GRANULE = 64;     // ops.py: split_plan's slot granule
+constexpr int BT_STAGE = 1024;        // ops.py: BT_STAGE, table entries a CTA
 
 template <typename T, int HD>
 struct Cfg {
@@ -96,18 +114,27 @@ struct Cfg {
   static constexpr size_t MISC =
       sizeof(float) * (3 * GMAX + MAX_CLUSTER * GMAX) + MAX_CHUNK / 8;
   static constexpr size_t SMEM = RING + SCORES + QS + MISC;
+  static constexpr size_t SMEM_PAGED = SMEM + sizeof(int) * BT_STAGE;
   static_assert(CHUNK_GRANULE % BS == 0, "a chunk is whole blocks");
   static_assert(sizeof(float) * GMAX * HD <= RING, "acc_s aliases the ring");
-  static_assert(SMEM <= 113 * 1024, "two CTAs per SM");
+  static_assert(SMEM_PAGED <= 113 * 1024, "two CTAs per SM");
 };
 
-template <typename T, int HD>
+// The paged entry's extra operands (unused by the dense entry).
+struct PagedArgs {
+  const int* bt;           // (B, max_blocks) logical -> physical page
+  int max_blocks, ps;      // table width, slots per page
+  long long kv_pstride;    // elements between two pages of k (and of v)
+  long long pos_pstride;   // elements between two pages of kv_pos
+};
+
+template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_pos,
                     const int* __restrict__ pos_ptr, T* __restrict__ o,
                     int cap, int Hq, int Hkv, int window, float softcap,
-                    float scale, int chunk) {
+                    float scale, int chunk, PagedArgs pg) {
   using C = Cfg<T, HD>;
   constexpr int BS = C::BS, CH = C::CH, SWZ = C::SWZ, ELEM = C::ELEM;
   constexpr int NST = C::NST, SS = C::SS;
@@ -121,6 +148,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* w_s = L_s + GMAX;                      // [MAX_CLUSTER][GMAX]
   // keep bit of each of the CTA's slots (bit j - s0)
   unsigned* keep = reinterpret_cast<unsigned*>(w_s + MAX_CLUSTER * GMAX);
+  // paged: the table entries of this CTA's pages (entry i is page lp0 + i)
+  int* bt_s = reinterpret_cast<int*>(keep + MAX_CHUNK / 32);
   float* acc_s = reinterpret_cast<float*>(smem);  // [GMAX][HD] after the walk
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -129,12 +158,30 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
-  const int pos = *pos_ptr;
+  const int pos = PAGED ? pos_ptr[b] : *pos_ptr;
   const int s0 = rank * chunk, s1 = min(cap, s0 + chunk);
   const int nb = s1 > s0 ? (s1 - s0 + BS - 1) / BS : 0;
+  const int lp0 = PAGED ? s0 / pg.ps : 0;
+  bool live = true;        // paged: the lane is active (bt[b, 0] >= 0)
+  if constexpr (PAGED) {
+    const int* row = pg.bt + (size_t)b * pg.max_blocks;
+    live = row[0] >= 0;
+    const int npg = s1 > s0 ? (s1 - 1) / pg.ps - lp0 + 1 : 0;
+    for (int i = tid; i < npg; i += NT) bt_s[i] = row[lp0 + i];
+    __syncthreads();
+  }
+  // physical page of logical slot j of this CTA (paged), -1 if unmapped
+  auto page_of = [&](int j) { return live ? bt_s[j / pg.ps - lp0] : -1; };
 
   auto keep_slot = [&](int j) {
-    const int kp = kv_pos[j];
+    int kp;
+    if constexpr (PAGED) {
+      const int phys = page_of(j);
+      if (phys < 0) return false;
+      kp = kv_pos[(size_t)phys * pg.pos_pstride + j % pg.ps];
+    } else {
+      kp = kv_pos[j];
+    }
     return kp <= pos && (window <= 0 || pos - kp < window);
   };
 
@@ -211,8 +258,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BS * CH; idx += NT) {
       const int r = idx / CH, c = idx % CH, j = j0 + r;
       const bool kept = j < s1 && kept_bit(j - s0);
-      const size_t off =
-          kept ? ((size_t)(b * cap + j) * Hkv + hk) * HD + c * ELEM : 0;
+      size_t off = 0;
+      if (kept) {
+        if constexpr (PAGED)
+          off = (size_t)page_of(j) * pg.kv_pstride +
+                ((size_t)(j % pg.ps) * Hkv + hk) * HD + c * ELEM;
+        else
+          off = ((size_t)(b * cap + j) * Hkv + hk) * HD + c * ELEM;
+      }
       const int dst = r * HD + (c ^ (r & SWZ)) * ELEM;
       cp_async16(ks + dst, k + off, !kept);
       cp_async16(vs + dst, v + off, !kept);
@@ -550,19 +603,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cluster.sync();      // no CTA leaves while a peer reads its partial
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_pos, const int* pos, void* o, int B, int cap,
                    int Hq, int Hkv, int window, float softcap, int chunk,
-                   int nclu, cudaStream_t stream) {
+                   int nclu, PagedArgs pg, cudaStream_t stream) {
   using C = Cfg<T, HD>;
+  constexpr size_t smem = PAGED ? C::SMEM_PAGED : C::SMEM;
   if (chunk <= 0 || chunk % CHUNK_GRANULE || chunk > MAX_CHUNK || nclu < 1 ||
       nclu > MAX_CLUSTER || (long long)(nclu - 1) * chunk >= cap ||
       (long long)nclu * chunk < cap)
     return cudaErrorInvalidValue;
-  auto kern = decode_split_kernel<T, HD>;
+  auto kern = decode_split_kernel<T, HD, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && nclu > 8)
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -570,7 +624,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nclu, Hkv, B);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -582,24 +636,46 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v),
                            kv_pos, pos, static_cast<T*>(o), cap, Hq, Hkv,
-                           window, softcap, 1.0f / sqrtf((float)HD), chunk);
+                           window, softcap, 1.0f / sqrtf((float)HD), chunk,
+                           pg);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const int* kv_pos, const int* pos, void* o, int B,
                         int cap, int Hq, int Hkv, int window, float softcap,
-                        int chunk, int nclu, cudaStream_t s) {
+                        int chunk, int nclu, PagedArgs pg, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, s);
-    case 32: return launch<T, 32>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, s);
-    case 64: return launch<T, 64>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, s);
-    case 128: return launch<T, 128>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, s);
-    case 256: return launch<T, 256>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, s);
+    case 16: return launch<T, 16, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
+    case 32: return launch<T, 32, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
+    case 64: return launch<T, 64, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
+    case 128: return launch<T, 128, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
+    case 256: return launch<T, 256, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool PAGED>
+int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
+             const void* kv_pos, const void* pos, void* o, int B, int cap,
+             int Hq, int Hkv, int window, float softcap, int chunk, int nclu,
+             PagedArgs pg, void* stream) {
+  if (B <= 0 || cap <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kp = static_cast<const int*>(kv_pos);
+  const int* p = static_cast<const int*>(pos);
+  if (dtype == kBF16)
+    return (int)dispatch_hd<__nv_bfloat16, PAGED>(hd, q, k, v, kp, p, o, B,
+                                                  cap, Hq, Hkv, window,
+                                                  softcap, chunk, nclu, pg, s);
+  if (dtype == kF32)
+    return (int)dispatch_hd<float, PAGED>(hd, q, k, v, kp, p, o, B, cap, Hq,
+                                          Hkv, window, softcap, chunk, nclu,
+                                          pg, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -613,17 +689,29 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     int cap, int Hq, int Hkv, int hd,
                                     int window, float softcap, int chunk,
                                     int nclu, void* stream) {
-  if (B <= 0 || cap <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX)
+  return dispatch<false>(dtype, hd, q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv,
+                         window, softcap, chunk, nclu,
+                         PagedArgs{nullptr, 0, 1, 0, 0}, stream);
+}
+
+// The paged entry: q (B,1,Hq,hd) and o contiguous; k_pool/v_pool
+// (NP, ps, Hkv, hd) and kv_pos_pool (NP, ps) contiguous within a page, pages
+// kv_pstride / pos_pstride elements apart; block_table (B, max_blocks) and
+// pos (B,) int32.  chunk and nclu come from split_plan over the logical cap
+// max_blocks * ps, and a CTA's pages must fit BT_STAGE:
+// (chunk - 1) / ps + 2 <= BT_STAGE.
+extern "C" int decode_attention_paged_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* kv_pos_pool, const void* block_table, const void* pos,
+    void* o, int dtype, int B, int max_blocks, int ps, int Hq, int Hkv,
+    int hd, long long kv_pstride, long long pos_pstride, int window,
+    float softcap, int chunk, int nclu, void* stream) {
+  if (max_blocks <= 0 || ps <= 0 || (chunk - 1) / ps + 2 > BT_STAGE ||
+      kv_pstride < (long long)ps * Hkv * hd || pos_pstride < ps)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* kp = static_cast<const int*>(kv_pos);
-  const int* p = static_cast<const int*>(pos);
-  if (dtype == kBF16)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, kp, p, o, B, cap, Hq,
-                                           Hkv, window, softcap, chunk, nclu,
-                                           s);
-  if (dtype == kF32)
-    return (int)dispatch_hd<float>(hd, q, k, v, kp, p, o, B, cap, Hq, Hkv,
-                                   window, softcap, chunk, nclu, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<true>(dtype, hd, q, k_pool, v_pool, kv_pos_pool, pos, o, B,
+                        max_blocks * ps, Hq, Hkv, window, softcap, chunk, nclu,
+                        PagedArgs{static_cast<const int*>(block_table),
+                                  max_blocks, ps, kv_pstride, pos_pstride},
+                        stream);
 }

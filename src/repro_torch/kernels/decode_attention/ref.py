@@ -5,13 +5,18 @@ and the kernel is held against.  ``decode_attention_split_ref`` mirrors the
 kernel's split-and-merge arithmetic step by step (per-CTA slot ranges,
 wholly masked blocks skipped, online softmax per block, the merge over the
 cluster in rank order); only tests use it, never the main path.
+
+``decode_attention_paged_ref`` is the plain version of the paged entry:
+each lane's pages gathered through its block-table row (``gather_pages``,
+the primitive under ``serve/kvcache.py:gather_lane_cache``), then
+``sdpa_naive``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import sdpa_naive
+from repro_torch.models.attention import _INVALID_POS, sdpa_naive
 
 
 def decode_attention_ref(q, k, v, pos, kv_pos, *, window: int = 0,
@@ -22,6 +27,59 @@ def decode_attention_ref(q, k, v, pos, kv_pos, *, window: int = 0,
                             device=q.device).reshape(1)
     return sdpa_naive(q, k, v, causal=True, window=window, q_pos=q_pos,
                       kv_pos=kv_pos, softcap=softcap)
+
+
+def gather_pages(leaf, block_row, *, slot_axis: int, page_size: int,
+                 positions: bool = False):
+    """The pages of ``leaf`` (page axis 0, a page's slots on ``slot_axis``)
+    that ``block_row`` ``(max_blocks,)`` names, end to end along the slot
+    axis: ``(*lead, max_blocks * ps, *rest)``.  Unmapped pages (id < 0) are
+    clamped for the gather; in a ``positions`` leaf (kv_pos) their slots
+    read INVALID, so attention masks them whatever the clamped page
+    holds."""
+    cap = block_row.shape[0] * page_size
+    row = block_row.to(torch.int64)
+    pages = leaf.index_select(0, row.clamp(0, leaf.shape[0] - 1))
+    flat = pages.movedim(0, slot_axis - 1)        # (*lead, mb, ps, *rest)
+    flat = flat.reshape(flat.shape[:slot_axis - 1] + (cap,)
+                        + flat.shape[slot_axis + 1:])
+    if positions:
+        valid = (row >= 0).repeat_interleave(page_size)
+        flat = torch.where(valid, flat, torch.full_like(flat, _INVALID_POS))
+    return flat
+
+
+def gather_lane(k_pool, v_pool, kv_pos_pool, block_row):
+    """One lane's dense cache of one layer from pools ``(NP, ps, Hkv, hd)``
+    / ``(NP, ps)`` through its row: k/v ``(1, cap, Hkv, hd)``, kv_pos
+    ``(cap,)``, cap = max_blocks * ps."""
+    ps = k_pool.shape[1]
+    k, v = (gather_pages(t, block_row, slot_axis=1, page_size=ps)[None]
+            for t in (k_pool, v_pool))
+    return k, v, gather_pages(kv_pos_pool, block_row, slot_axis=1,
+                              page_size=ps, positions=True)
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, kv_pos_pool, block_table,
+                               pos, *, window: int = 0,
+                               softcap: float = 0.0):
+    """q: (B,1,Hq,hd); pools (NP, ps, Hkv, hd) / (NP, ps); block_table
+    (B, max_blocks); pos (B,).  Each lane's cache is gathered through its
+    row (``gather_lane``, unmapped pages INVALID) and attended by
+    ``sdpa_naive``.  A lane that keeps no slot (inactive: block_table[b, 0]
+    < 0) gets zeros, the kernel's defined output; nothing reads it."""
+    outs = []
+    for b in range(q.shape[0]):
+        k, v, kv_pos = gather_lane(k_pool, v_pool, kv_pos_pool,
+                                   block_table[b])
+        qp = pos[b:b + 1].to(torch.int32)
+        keep = kv_pos <= qp
+        if window:
+            keep &= qp - kv_pos < window
+        o = sdpa_naive(q[b:b + 1], k, v, causal=True, window=window,
+                       q_pos=qp, kv_pos=kv_pos, softcap=softcap)
+        outs.append(torch.where(keep.any(), o, torch.zeros_like(o)))
+    return torch.cat(outs)
 
 
 def decode_attention_split_ref(q, k, v, pos, kv_pos, *, chunk: int,

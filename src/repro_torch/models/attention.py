@@ -12,6 +12,10 @@ Decode writes the new k/v into the ring cache *in place* (``index_copy_``
 at slot ``pos % cap``) where the reference built a new array with
 ``dynamic_update_slice``; the slot and the ``kv_pos`` bookkeeping are the
 same.  Callers that need the old cache intact pass a copy.
+
+``gqa_decode_paged`` is the serving engine's decode over the paged pool
+(``serve/kvcache.py``): the whole lane batch at once, each lane at its own
+position, where the reference vmaps a gather + dense decode per lane.
 """
 
 from __future__ import annotations
@@ -225,6 +229,52 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
     return _out_proj(out, p["wo"]), cache
+
+
+def gqa_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     pos: torch.Tensor, pool: dict, block_table: torch.Tensor,
+                     *, write_ok: torch.Tensor | None = None,
+                     window: int | None = None, impl: str = "kernel"):
+    """One-token decode of every lane of the engine's batch over the paged
+    pool.  x: (B, 1, D); pos: (B,) int32, each lane's position; pool: one
+    layer's views ``k``/``v`` (NP + 1, ps, Hkv, hd) and ``kv_pos``
+    (NP + 1, ps), page NP the sink; block_table: (B, max_blocks) int32.
+
+    Lane b writes its new k, v and position in place at
+    ``pool[bt[b, lp], pos[b] % ps]``, ``lp = (pos[b] % cap) // ps`` with
+    ``cap = max_blocks * ps``; the write goes to the sink instead where
+    ``bt[b, 0] < 0`` (inactive lane), ``bt[b, lp] < 0`` (unmapped page) or
+    ``write_ok[b]`` is False.  Then every lane attends over its own pages:
+    K1's paged entry (``impl="kernel"``) or gather + ``sdpa_naive``
+    (``impl="naive"``)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    B = x.shape[0]
+    k_pool, v_pool, kv_pos = pool["k"], pool["v"], pool["kv_pos"]
+    sink, ps = k_pool.shape[0] - 1, k_pool.shape[1]
+    pos = pos.to(torch.int32)
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos.reshape(B, 1))
+    lp = ((pos % (block_table.shape[1] * ps)) // ps).long()
+    phys = block_table.gather(1, lp[:, None])[:, 0]
+    ok = (block_table[:, 0] >= 0) & (phys >= 0)
+    if write_ok is not None:
+        ok &= write_ok
+    phys = torch.where(ok, phys, sink).long()
+    off = (pos % ps).long()
+    k_pool[phys, off] = k_new[:, 0]
+    v_pool[phys, off] = v_new[:, 0]
+    kv_pos[phys, off] = pos
+    w = cfg.sliding_window if window is None else window
+    kw = dict(window=w, softcap=cfg.attn_logit_softcap)
+    if impl == "kernel":
+        out = da_ops.decode_attention_paged(q, k_pool, v_pool, kv_pos,
+                                            block_table, pos, **kw)
+    elif impl == "naive":
+        out = da_ops.decode_attention_paged_ref(q, k_pool, v_pool, kv_pos,
+                                                block_table, pos, **kw)
+    else:
+        raise ValueError(f"unknown decode impl {impl!r}")
+    return _out_proj(out, p["wo"])
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, *,

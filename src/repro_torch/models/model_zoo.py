@@ -6,7 +6,12 @@ families so far).
     init(seed, device)                       -> params
     prefill_fn(params, batch)                -> (logits, caches)
     decode_fn(params, tok, pos, caches, inplace=False) -> (logits, caches)
+    decode_paged_fn(params, tok, pos, pool, block_table, write_ok=None)
+                                             -> (logits, pool)
     cache_specs(batch, max_len)              -> caches as meta tensors
+
+``decode_paged_fn`` is the serving engine's decode: every lane at its own
+position over the paged KV pool (dense plans; K1's paged entry).
 
 Prefill and decode default to the hand-written kernels (``"kernel"``: K2
 for attention prefill, K3 for the SSD scan, K4 for the RG-LRU scan, K1 for
@@ -32,6 +37,7 @@ class ModelBundle:
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
     cache_specs: Callable[[int, int], Any]
+    decode_paged_fn: Callable[..., Any]
     cache_margin: int = 0
 
 
@@ -46,6 +52,7 @@ def build_model(cfg: ModelConfig, *, prefill_impl: str = "kernel",
                            cache_margin=cache_margin),
         decode_fn=partial(_tf.lm_decode, cfg, impl=decode_impl),
         cache_specs=partial(_tf.lm_cache_specs, cfg),
+        decode_paged_fn=partial(_tf.lm_decode_paged, cfg, impl=decode_impl),
         cache_margin=cache_margin,
     )
 

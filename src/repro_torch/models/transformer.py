@@ -12,7 +12,8 @@ parameters and caches stacked along a leading ``count`` axis:
 A Python loop over that axis replaces ``lax.scan``; per-layer parameters
 and caches are views into the stacked tensors, so decode's in-place cache
 writes (attention ring, SSM state, RG-LRU state, conv windows) land in the
-stacked cache.
+stacked cache.  ``lm_decode_paged`` is the serving engine's decode over
+the paged pool (dense plans), one step for every lane at its own position.
 """
 
 from __future__ import annotations
@@ -242,6 +243,39 @@ def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
                             prefill_chunk=0, cache_margin=0)
     logits = lm_head_fwd(cfg, params["embed"], h)
     return logits[:, 0, :], caches
+
+
+def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                    pos: torch.Tensor, pool, block_table: torch.Tensor, *,
+                    impl: str = "kernel",
+                    write_ok: torch.Tensor | None = None):
+    """One decode step of every lane of the serving engine over the paged
+    pool (``serve/kvcache.py`` layout: the cache tree with page axis 0 in
+    front of each segment's stacked ``count`` axis).  token: (B,) int;
+    pos: (B,) int32, each lane's position; block_table: (B, max_blocks)
+    int32.  Writes each lane's new k/v into its page in place (see
+    ``attention.gqa_decode_paged``) and returns (logits (B, V), pool).
+    Attention-only plans only: other mixers have no pages."""
+    h = embed_fwd(cfg, params["embed"], token.reshape(-1, 1))
+    for si, seg in enumerate(plan_segments(cfg)):
+        for i in range(seg.count):
+            rep_p = _layer(params["segments"][si], i)
+            for b, spec in enumerate(seg.blocks):
+                if spec.mixer != "attn":
+                    raise ValueError(f"mixer {spec.mixer!r} has no paged "
+                                     "decode (its state has no pages)")
+                p = rep_p["blocks"][b]
+                layer_pool = {k: t[:, i] for k, t in pool[si][b].items()}
+                h = h + attn.gqa_decode_paged(
+                    cfg, p["attn"], norm_fwd(cfg, p["norm1"], h), pos,
+                    layer_pool, block_table, write_ok=write_ok,
+                    window=spec.window, impl=impl)
+                if spec.ffn == "mlp":
+                    h = h + mlp_fwd(cfg, p["mlp"],
+                                    norm_fwd(cfg, p["norm2"], h))
+    h = norm_fwd(cfg, params["final_norm"], h)
+    logits = lm_head_fwd(cfg, params["embed"], h)
+    return logits[:, 0, :], pool
 
 
 def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int):

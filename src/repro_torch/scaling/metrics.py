@@ -1,9 +1,11 @@
 """Dependency-free telemetry registry the monitor publishes to.
 
-A copy of the part of the reference package's registry that the monitor
-and the chaos hooks use: counters, gauges, windowed histograms, a bounded
-event ring, and one snapshot of them all. The clock is injectable, so a
-replayed trace can stamp samples with virtual time.
+A copy of the part of the reference package's registry that the monitor,
+the chaos hooks, the serving engine and the request router use: counters,
+gauges (with a per-label lookup for KV-aware routing), windowed
+histograms, a bounded event ring, and one snapshot of them all. The
+clock is injectable, so a replayed trace can stamp samples with virtual
+time.
 
 Types:
 
@@ -21,7 +23,7 @@ import math
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 Clock = Callable[[], float]
 
@@ -149,6 +151,8 @@ class MetricsRegistry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        # gauge key -> (name, sorted label items), for label lookups
+        self._gauge_labels: Dict[str, Tuple[str, tuple]] = {}
         # flight recorder: bounded ring of notable events (faults,
         # execute retries and failures) for post-mortem dumps.
         # Guarded by its own lock so event bursts never contend with the
@@ -171,6 +175,8 @@ class MetricsRegistry:
         with self._lock:
             if key not in self._gauges:
                 self._gauges[key] = Gauge()
+                self._gauge_labels[key] = (name, tuple(sorted(
+                    labels.items())))
             return self._gauges[key]
 
     def histogram(self, name: str, **labels) -> Histogram:
@@ -179,6 +185,17 @@ class MetricsRegistry:
             if key not in self._histograms:
                 self._histograms[key] = Histogram(self.clock)
             return self._histograms[key]
+
+    def labeled_gauge_values(self, name: str, **labels,
+                             ) -> List[Tuple[Dict[str, str], float]]:
+        """``(label_dict, value)`` of every gauge of family ``name`` whose
+        labels contain ``labels`` (e.g. each engine's ``kv_free_pages`` of
+        a service)."""
+        want = set(labels.items())
+        with self._lock:
+            return [(dict(items), self._gauges[key].value)
+                    for key, (mname, items) in self._gauge_labels.items()
+                    if mname == name and want <= set(items)]
 
     # -- flight recorder ----------------------------------------------------
     def record_event(self, kind: str, **fields):
@@ -191,6 +208,20 @@ class MetricsRegistry:
             seq = self._event_seq
             self._event_seq += 1
             self._events.append((self.clock(), kind, fields, seq))
+
+    def flight_record_to_file(self, path: str, **context) -> str:
+        """Write ``snapshot()`` plus the caller's context (e.g. the failing
+        engine and the error) as JSON to ``path``: the event ring outlives
+        the process that crashed."""
+        import json
+
+        dump = self.snapshot()
+        dump["events"] = [{"t": t, "kind": kind, "fields": fields, "seq": seq}
+                          for t, kind, fields, seq in dump["events"]]
+        dump["context"] = {k: str(v) for k, v in context.items()}
+        with open(path, "w") as f:
+            json.dump(dump, f, default=str)
+        return path
 
     def snapshot(self) -> dict:
         """Every metric's value and the event ring (ts = injected clock)."""

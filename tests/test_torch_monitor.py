@@ -328,7 +328,8 @@ def test_buffer_table_evicts_dirty_bytes_only_and_restores_copies():
     t.on_h2d("b", val.numpy(), val.clone())
     t.on_execute_write("a", val * 2)
     stats = t.evict_device_state()
-    assert stats == {"saved_bytes": 64, "skipped_bytes": 64, "n_dirty": 1}
+    assert stats == {"saved_bytes": 64, "skipped_bytes": 64, "n_dirty": 1,
+                     "paged_saved_pages": 0, "paged_total_pages": 0}
     assert all(t.get(i).device_value is None for i in ("a", "b"))
     t.restore_device_state(torch.device("cpu"))
     dev = t.get("a").device_value

@@ -135,6 +135,13 @@ def test_unported_task_kinds_raise():
         TaskImage(name="x", kind="train").instantiate()
 
 
+def test_engine_serve_instantiates_an_engine_task():
+    from repro_torch.core import EngineServeTask
+
+    task = TaskImage(name="x", kind="engine-serve").instantiate()
+    assert isinstance(task, EngineServeTask) and task.drained
+
+
 def test_served_prompt_is_the_reference_prompt():
     """ServeTask's prompt comes from make_batch, whose Philox rule gives
     the reference's tokens (tests/test_torch_model.py checks equality)."""
