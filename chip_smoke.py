@@ -49,7 +49,14 @@ caught):
    a monitor with evict/resume every 4 iterations; identical tokens,
    exact launch counts (paged K1 48 per decode step, K2 48 per prefill,
    dense K1 none), OOM preemption and compaction, page-granular evicts,
-   kernel-path logits against the plain path's, one traced decode step.
+   kernel-path logits against the plain path's, one traced decode step;
+15. the CRI layer at full-width yi-9b (``phase_cri``): the same 24
+   requests through NodeAgent -> ContainerEngine -> FunkyRuntime on two
+   nodes of the card, with a full and an incremental checkpoint to disk
+   (the second bit-flipped after publishing), evict and migrate, replicate,
+   a hard failure of the replica's node with lease replay, and a restore
+   that falls back to the first snapshot; run (a)'s tokens, exact launch
+   counts over every replica, seconds and bytes of each operation.
 
 Each model's weights are freed before the next model's phases.  The last
 line is ``{"ok": true, "device": {...}}``; the line before it is the card's
@@ -100,7 +107,7 @@ PARITY_F32_TOL = 1e-3
 PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
-          "profile_recurrentgemma", "evict_new", "engine")
+          "profile_recurrentgemma", "evict_new", "engine", "cri")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -1492,6 +1499,262 @@ def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
                              f"{prefill_checks}")
     state.setdefault("launches", {})["engine"] = a["launches"]
     state["engine"] = {"a": a, "b": b, "c": c}
+    state["engine_tokens"] = a_tok
+
+
+# ---------------------------------------------------------------------------
+# 15. the CRI layer: checkpoint, migrate, replicate, crash, restore
+# ---------------------------------------------------------------------------
+
+# two nodes on the one card, each with two slices of 36 GiB (node0 holds
+# the clone and the restored replica at once; one replica peaks at 18.1
+# GB); commands land after these many iterations of the serving replica
+CRI = dict(slices=2, mem_cap=36 << 30, ckpt1_at=4, gap=4, wave1=12,
+           need_bytes=20e9)
+
+
+def _decode_ms(eng):
+    """(decode EXECUTEs, their seconds) so far: the engine's own count."""
+    return (eng.program_execs.get("decode_step", 0),
+            eng.program_device_s.get("decode_step", 0.0))
+
+
+def _interval_ms(a, b):
+    n, s = b[0] - a[0], b[1] - a[1]
+    return {"decode_steps": n, "decode_step_ms": s / n * 1e3 if n else None}
+
+
+def phase_cri(state, arch=ENGINE["arch"], device="cuda"):
+    """Run (a)'s workload on full-width yi-9b through NodeAgent ->
+    ContainerEngine (CRI) -> FunkyRuntime -> FunkyCL -> Monitor on two
+    nodes wired as ``make_cluster`` wires them (no orchestrator): deploy
+    on node0; checkpoint (snapshot 1, full); checkpoint with ``ckpt.corrupt``
+    armed (snapshot 2, incremental: ``params`` referenced, then a byte of
+    one of its files flipped); evict and migrate to node1; replicate onto
+    node0; node1 fails hard (agent down, ``crash``, the router replays the
+    replica's leases); restore on node0 from the newest snapshot of both
+    nodes' roots, which falls back to snapshot 1; the last 12 requests
+    arrive once the restored replica runs; drain and remove both.  Gates:
+    every request completes once with run (a)'s tokens, no duplicates or
+    replay mismatches, exact launch counts over every replica's engine,
+    snapshot 2 reuses ``params``, the restore falls back with a
+    ``restore_fallback`` event.  Snapshots go under a temporary directory,
+    deleted at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    want = state["engine_tokens"]
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="funky-cri-")
+    usage = shutil.disk_usage(root)
+    log(phase="cri", ckpt_dir=root, disk_total=usage.total,
+        disk_used=usage.used, disk_free=usage.free)
+    try:
+        if usage.free < CRI["need_bytes"]:
+            raise RuntimeError(
+                f"cri: {usage.free / 1e9:.1f} GB free under {root}; the "
+                f"phase writes about 18.5 GB of snapshots (needs "
+                f"{CRI['need_bytes'] / 1e9:.0f} GB)")
+        _cri(state, cfg, arch, device, want, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if device == "cuda":
+            _free_cuda()
+    log(phase="cri", phase_s=time.perf_counter() - t_phase)
+
+
+def _cri(state, cfg, arch, device, want, root):
+    import json
+    import os
+
+    import torch
+
+    from repro_torch.chaos import FaultPlan, FaultSpec
+    from repro_torch.ckpt import snapshot_candidates
+    from repro_torch.core import (ContainerEngine, FunkyRuntime, NodeAgent,
+                                  SliceAllocator, TaskImage, TaskStatus)
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.scaling.serving import reset_router
+
+    name = "cri"
+    im = TaskImage(name=name, kind="engine-serve", arch=arch,
+                   global_batch=ENGINE["slots"],
+                   prompt_len=ENGINE["prompt_len"],
+                   max_new_tokens=ENGINE["max_new_tokens"],
+                   page_size=ENGINE["page_size"],
+                   kv_pool_pages=ENGINE["pool_pages"],
+                   prompt_buckets=ENGINE["prompt_buckets"],
+                   total_steps=10 ** 9, seed=SEED)
+    reg = MetricsRegistry()
+    plan = FaultPlan(seed=SEED, registry=reg)
+    engines, agents = {}, {}
+    for nid in ("node0", "node1"):
+        rt = FunkyRuntime(nid, SliceAllocator(nid, CRI["slices"],
+                                              mem_cap_bytes=CRI["mem_cap"],
+                                              device=device),
+                          ckpt_root=os.path.join(root, nid), telemetry=reg,
+                          chaos=plan)
+        engines[nid] = ContainerEngine(rt, {name: im}, peers=engines)
+        agents[nid] = NodeAgent(nid, engines[nid], metrics=reg, chaos=plan)
+    a0, a1 = agents["node0"], agents["node1"]
+    rt0, rt1 = a0.engine.runtime, a1.engine.runtime
+    router = reset_router(name)
+    router.registry = reg
+    wrappers = _wrappers()
+    ops, dec = {}, {}
+    watched = []                            # records that must not fail
+
+    def op(tag, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        ops[tag] = time.perf_counter() - t
+        return out
+
+    def entry(rec, kind):
+        return [e[2] for e in rec.timeline if e[1] == kind][-1]
+
+    def wait(cond, what, timeout=900):
+        deadline = time.time() + timeout
+        while not cond():
+            for r in watched:
+                if r.status is TaskStatus.FAILED:
+                    raise RuntimeError(f"cri: {r.cid} failed while waiting "
+                                       f"for {what}: {r.error!r}")
+            if time.time() > deadline:
+                raise RuntimeError(f"cri: timed out waiting for {what}")
+            time.sleep(0.01)
+
+    def iterations(rec, n):
+        s = rec.guest_state.step
+        wait(lambda: rec.guest_state.step >= s + n, f"{n} iterations")
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    op("deploy", a0.deploy, "r0", name)
+    r0 = rt0.tasks["r0"]
+    watched.append(r0)
+    wait(lambda: r0.status is TaskStatus.RUNNING, "setup")
+    ops["deploy_to_running"] = time.perf_counter() - t
+    # the weights are drawn; the path starts with the first request
+    for w in wrappers.values():
+        w.launches = 0
+    reqs = engine_requests(cfg.vocab_size)
+    t_serve = time.perf_counter()
+    for r in reqs[:CRI["wave1"]]:
+        router.submit(r)
+    eng0 = r0.task.engine
+    iterations(r0, CRI["ckpt1_at"])
+    p1 = op("checkpoint1", a0.checkpoint, "r0")
+    ck1 = entry(r0, "checkpoint")
+    iterations(r0, CRI["gap"])
+    plan.add(FaultSpec(site="ckpt.corrupt", kind="corrupt", at=1))
+    p2 = op("checkpoint2", a0.checkpoint, "r0")
+    ck2 = entry(r0, "checkpoint")
+    with open(os.path.join(p2, "manifest.json")) as f:
+        m2 = json.load(f)
+    if (ck2["reused_buffers"] < 1 or m2["buffers"]["params"]
+            != os.path.join(p1, "params")):
+        raise AssertionError(f"cri: snapshot 2 did not reuse params "
+                             f"({ck2}, {m2['buffers']})")
+    if [f[:2] for f in plan.fired] != [("ckpt.corrupt", "corrupt")]:
+        raise AssertionError(f"cri: corrupt site fired {plan.fired}")
+    dec["r0_node0"] = _interval_ms((0, 0.0), _decode_ms(eng0))
+    op("evict", a0.evict, "r0")
+    ev = entry(r0, "evict")
+    op("migrate", a1.migrate_in, "r0", name, source_node="node0")
+    if rt1.tasks["r0"] is not r0 or r0.task.engine is not eng0:
+        raise AssertionError("cri: the migrated replica lost its engine")
+    mark = _decode_ms(eng0)
+    iterations(r0, CRI["gap"])
+    dec["r0_node1_alone"] = _interval_ms(mark, _decode_ms(eng0))
+    op("replicate", a0.replicate_in, "r1", "r0", source_node="node1")
+    r1 = rt0.tasks["r1"]
+    watched.append(r1)
+    rep = entry(r1, "replicated")
+    mark0 = _decode_ms(eng0)
+    wait(lambda: r1.task.engine is not None, "the clone's setup")
+    eng1 = r1.task.engine
+    iterations(r0, 2 * CRI["gap"])
+    dec["r0_node1_with_r1"] = _interval_ms(mark0, _decode_ms(eng0))
+    # node1 fails hard, as Orchestrator.handle_node_failure does it
+    t = time.perf_counter()
+    a1.fail()
+    rt1.crash("r0")
+    watched.remove(r0)
+    replayed = router.fail_engine("r0")
+    ops["node_failure"] = time.perf_counter() - t
+    dec["r0_total"] = _interval_ms((0, 0.0), _decode_ms(eng0))
+    roots = [rt0.ckpt_root, rt1.ckpt_root]
+    newest = snapshot_candidates(roots, "r0")[0]
+    if newest != p2:
+        raise AssertionError(f"cri: newest snapshot {newest}, want {p2}")
+    mark1 = _decode_ms(eng1)
+    op("restore", a0.restore, "r0", newest)
+    rr = rt0.tasks["r0"]
+    watched.append(rr)
+    rs, rsd = entry(rr, "restore"), entry(rr, "restored")
+    fallbacks = [e for e in reg.snapshot()["events"]
+                 if e[1] == "restore_fallback"]
+    if rr.latest_snapshot != p1 or len(fallbacks) != 1:
+        raise AssertionError(f"cri: restore used {rr.latest_snapshot} with "
+                             f"{len(fallbacks)} fallbacks; want {p1}, 1")
+    dec["r1_during_restore"] = _interval_ms(mark1, _decode_ms(eng1))
+    for r in reqs[CRI["wave1"]:]:
+        router.submit(r)
+    wait(lambda: rr.task.engine is not None, "the restored replica's setup")
+    eng2 = rr.task.engine
+    mark1, mark2 = _decode_ms(eng1), _decode_ms(eng2)
+    wait(lambda: router.outstanding() == 0, "every request")
+    wall = time.perf_counter() - t_serve
+    dec["r1_with_restored"] = _interval_ms(mark1, _decode_ms(eng1))
+    dec["restored_with_r1"] = _interval_ms(mark2, _decode_ms(eng2))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    drains = {}
+    for cid in ("r1", "r0"):
+        drains[cid] = op(f"drain_{cid}", a0.drain, cid)
+        op(f"remove_{cid}", a0.remove, cid)
+    rt1.delete("r0")                        # the failed node's record
+    router.close()
+    tokens = {rid: list(c.tokens) for rid, c in router.completed.items()}
+    served = {"r0": len(eng0.completed), "r1": len(eng1.completed),
+              "r0_restored": len(eng2.completed)}
+    engs = (eng0, eng1, eng2)
+    steps = sum(e.program_execs.get("decode_step", 0) for e in engs)
+    prefills = sum(n for e in engs for p, n in e.program_execs.items()
+                   if p.startswith("prefill_admit"))
+    L = cfg.num_layers
+    expected = {"K1": 0, "K1p": L * steps, "K2": L * prefills, "K3": 0,
+                "K4": 0}
+    stats = dict(
+        wall_s=wall, requests=len(tokens), replayed=replayed,
+        replayed_rids=sorted(router.replayed), served_by=served,
+        duplicates=router.duplicates,
+        replay_mismatches=router.replay_mismatches, decode_steps=steps,
+        prefills=prefills, launches=launches, op_s=ops,
+        checkpoint1=ck1, checkpoint2=ck2, evict=ev,
+        migrate_s=ops["migrate"], replicate=rep, restore=rs,
+        restored=rsd, drains=drains, decode=dec,
+        node_ops={k: v for k, v in reg.snapshot()["counters"].items()
+                  if k.startswith("node_ops_total")})
+    if device == "cuda":
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(phase="cri", card=state.get("card"), **stats)
+    if tokens != want:
+        bad = sorted(r for r in want if tokens.get(r) != want[r])
+        raise AssertionError(f"cri: tokens differ from run a for {bad}")
+    if router.duplicates or router.replay_mismatches:
+        raise AssertionError(f"cri: {router.duplicates} duplicates, "
+                             f"{router.replay_mismatches} replay mismatches")
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"cri: launch counts {launches}, expected "
+                             f"{expected} ({steps} decode steps, {prefills} "
+                             "prefills)")
+    state.setdefault("launches", {})["cri"] = launches
+    state["cri"] = stats
 
 
 # ---------------------------------------------------------------------------
@@ -1524,12 +1787,17 @@ def kernel_line(state):
             "event_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_device_ms")})
+    # K2 at yi-9b's shape also runs the engine's and the CRI path's
+    # admissions (B 1)
+    rows[2]["launches_engine"] = state["launches"]["engine"]["K2"]
+    rows[2]["launches_cri"] = state["launches"]["cri"]["K2"]
     r = state["k1p"]["path"]
     rows.append({
         "name": "decode_attention_paged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
         "launches": state["launches"]["engine"]["K1p"],
+        "launches_cri": state["launches"]["cri"]["K1p"],
         "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
         "event_ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

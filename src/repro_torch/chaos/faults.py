@@ -1,11 +1,26 @@
-"""Deterministic, seeded fault injection (the monitor's hook).
+"""Deterministic, seeded fault injection for the live plane.
 
 A ``FaultPlan`` is a list of ``FaultSpec`` injection points evaluated at
-named *sites*; the port's monitor has one, ``monitor.execute`` (per-EXECUTE
-dispatch; kind error | delay | crash).  Every decision is a pure function
-of (seed, spec list, per-site event counts), so two runs with the same plan
-over the same events fire identically.  Components built without a plan
-(``chaos=None``) skip the hook entirely.
+named *sites* threaded through the stack behind no-op hooks:
+
+    agent.deploy / agent.evict / agent.resume / agent.migrate_in /
+    agent.checkpoint / agent.restore / agent.replicate_in / agent.update /
+    agent.drain / agent.remove
+                            node-agent ops (kind: crash | error | delay)
+    monitor.execute         per-EXECUTE dispatch (kind: error | delay |
+                            crash)
+    ckpt.save               per-buffer write during save_snapshot
+                            (kind: torn | error — torn raises mid-write,
+                            before the manifest publishes)
+    ckpt.corrupt            after a successful publish (kind: corrupt —
+                            flips a byte in one on-disk buffer file)
+    ckpt.restore            before a restore reads (kind: error)
+
+(The reference's ``router.pop`` and ``kv.transfer`` sites come with the
+router's chaos hooks and disaggregation.)  Every decision is a pure
+function of (seed, spec list, per-site event counts), so two runs with the
+same plan over the same events fire identically.  Components built without
+a plan (``chaos=None``) skip the hook entirely.
 
 Exception taxonomy:
 

@@ -510,6 +510,15 @@ class Monitor:
                 step=guest_state.step,
                 versions=self.buffers.versions(),
                 buffer_specs=self.buffers.spec_map(),
+                paged=self.buffers.paged_ids(),
             )
             self.metrics_hist["checkpoint"].append(time.perf_counter() - t0)
             return snap
+
+    def load_snapshot(self, snap: TaskSnapshot):
+        """Initialize buffers from a snapshot (restore, replicate).  Buffers
+        stay on the host until ``resume`` re-materializes them on a
+        slice."""
+        self.buffers.load_snapshot(snap.buffers, snap.buffer_specs,
+                                   snap.paged, snap.versions)
+        self.state = MonitorState.EVICTED

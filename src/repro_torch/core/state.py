@@ -313,17 +313,33 @@ class BufferTable:
         """Abstract registry of every buffer (incl. INIT ones)."""
         return {i: b.spec for i, b in self._buffers.items()}
 
-    def load_snapshot(self, snap: dict, specs: dict | None = None):
+    def paged_ids(self) -> tuple:
+        return tuple(i for i, b in self._buffers.items() if b.paged)
+
+    def load_snapshot(self, snap: dict, specs: dict | None = None,
+                      paged=(), versions: dict | None = None):
+        """Adopt a snapshot's host trees (restore, replicate).  The trees
+        stay shared with the snapshot and with any table it was taken
+        from, so a paged buffer copies its host leaves before its first
+        dirty-page merge patches them.  Write versions carry over, so an
+        incremental checkpoint of the adopted state references only the
+        buffers written no time since the snapshot."""
         for i, spec in (specs or {}).items():
             if i not in self._buffers:
-                self._buffers[i] = Buffer(buff_id=i, spec=spec)
+                self._buffers[i] = Buffer(buff_id=i, spec=spec,
+                                          paged=i in paged)
         for i, host_value in snap.items():
             if i not in self._buffers:
-                self._buffers[i] = Buffer(buff_id=i, spec=None, nbytes=0)
+                self._buffers[i] = Buffer(buff_id=i, spec=None, nbytes=0,
+                                          paged=i in paged)
             b = self._buffers[i]
             b.host_value = host_value
             b.state = BufferState.SYNC
             b.nbytes = tree_bytes(host_value)
+            b.version = (versions or {}).get(i, 0)
+            if b.paged:
+                b.page_dirty = set()
+                b.host_shared = True
 
     def zero_and_clear(self):
         """Release everything (monitor zeroes freed device memory, §3.4)."""
@@ -356,6 +372,7 @@ class TaskSnapshot:
     step: int = 0
     versions: dict = field(default_factory=dict)   # buff_id -> write version
     buffer_specs: dict = field(default_factory=dict)  # full registry
+    paged: tuple = ()                   # ids of paged buffers (page pools)
 
     def nbytes(self) -> int:
         return tree_bytes(self.buffers)

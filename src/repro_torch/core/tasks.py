@@ -4,9 +4,9 @@ Tasks are written against the FunkyCL API only — they allocate on
 ``cl.device`` and reach it through the monitor.  They are *step-wise
 resumable*: ``setup()`` builds programs and buffers (or re-attaches after
 restore), ``step()`` performs one preemptible unit of work.  The runtime's
-driver thread calls ``step()`` in a loop; all orchestration (evict/resume)
-lands between steps plus a monitor-level SYNC — the paper's
-request-boundary preemption model.
+driver thread calls ``step()`` in a loop; all orchestration
+(evict/resume/migrate/checkpoint) lands between steps plus a monitor-level
+SYNC — the paper's request-boundary preemption model.
 
 Ported: ``ServeTask`` (one fixed batch over reserved caches) and
 ``EngineServeTask`` (a continuous-batching engine replica fed by the
@@ -70,8 +70,27 @@ class GuestTask:
     def teardown(self, cl: FunkyCL, gs: GuestState) -> None:
         pass
 
+    def on_update(self, vfpga_num: int) -> None:
+        """Vertical-scaling hook (the runtime's ``update`` command)."""
+
     def on_kill(self) -> None:
-        """Graceful-kill hook, run once the task's driver thread stopped."""
+        """Graceful-kill hook, run once the task's driver thread stopped:
+        release any work the task holds that outlives it (e.g. requeue
+        in-flight requests).  A crash never runs it."""
+
+    def drain(self) -> None:
+        """Graceful-decommission hook: stop taking new work and finish what
+        is already held.  Tasks without a notion of draining ignore it."""
+
+    @property
+    def drained(self) -> bool:
+        """True once a draining task holds no unfinished work."""
+        return True
+
+    def program_ids(self) -> tuple:
+        """Program ("bitstream") ids this guest compiles; empty means
+        unknown (e.g. before setup)."""
+        return ()
 
 
 class ServeTask(GuestTask):
@@ -89,6 +108,9 @@ class ServeTask(GuestTask):
     def __init__(self, image: TaskImage):
         self.image = image
         self.cfg = get_arch(image.arch)
+
+    def program_ids(self) -> tuple:
+        return self.PROGRAMS
 
     def _build_programs(self, device: torch.device):
         from repro_torch.models import build_model
@@ -179,6 +201,12 @@ class EngineServeTask(GuestTask):
     boundaries.  The task finishes when the router is closed and every
     lane has drained.  ``drain()`` stops admissions and finishes the held
     sequences, so scale-in needs no requeue.
+
+    Restore and replicate build a new replica from a snapshot: its engine
+    starts with empty lanes on the snapshot's pool.  A migrated replica
+    keeps its engine, since the guest's memory (lanes, page allocator,
+    block-table mirror) moves with its device context; a new engine would
+    strand the requests leased to the old one.
     """
 
     def __init__(self, image: TaskImage):
@@ -194,6 +222,8 @@ class EngineServeTask(GuestTask):
         from repro_torch.scaling.serving import get_router
         from repro_torch.serve.engine import ContinuousBatchingEngine
 
+        if restore and self._engine is not None:
+            return                          # migrated whole: keep the lanes
         im = self.image
         self._router = get_router(im.name, registry=cl._monitor.telemetry)
         self._engine = ContinuousBatchingEngine(
@@ -228,8 +258,10 @@ class EngineServeTask(GuestTask):
 
     def teardown(self, cl: FunkyCL, gs: GuestState) -> None:
         gs.user["completed"] = len(self._engine.completed)
+        # the engine's own FunkyCL holds the program references (a
+        # migrated replica's driver runs on a newer one)
         for pid in self._engine.program_ids():
-            cl.clReleaseProgram(pid)
+            self._engine.cl.clReleaseProgram(pid)
 
     def on_kill(self) -> None:
         # scale-in removed this replica: report what already finished, then

@@ -1,7 +1,8 @@
 """The service-scoped request frontend of the per-request serving path:
 ``RequestRouter`` (the reference's ``scaling/serving.py``, its intake,
-KV-aware pop, completion and requeue; prefix-warmth probes, engine roles
-and the open-loop drive loops are not ported yet).
+KV-aware pop, completion, requeue and crash replay; prefix-warmth probes,
+engine roles, lease transfer and the open-loop drive loops are not ported
+yet).
 
 Requests are published to the router; every ``EngineServeTask`` replica's
 continuous-batching engine pulls admissible requests from it in ``pump``
@@ -28,7 +29,10 @@ class RequestRouter:
     served on its next pop, so preference never starves a replica.
 
     Every popped request holds a lease until its engine completes or
-    requeues it; ``complete`` counts each request once.
+    requeues it; ``complete`` counts each request once.  ``fail_engine``
+    replays a crashed replica's leases, recording each request's
+    committed tokens, and ``complete`` checks that the replayed completion
+    starts with them (``replay_mismatches`` counts those that do not).
     """
 
     def __init__(self, service: str = "svc", registry=None,
@@ -43,6 +47,9 @@ class RequestRouter:
         self._leases: Dict[str, tuple] = {}   # rid -> (req, engine_id)
         self.completed: Dict[str, object] = {}   # rid -> CompletedRequest
         self.duplicates = 0
+        # rid -> tokens committed before the crash that replayed it
+        self.replayed: Dict[str, list] = {}
+        self.replay_mismatches = 0
 
     @property
     def in_flight(self) -> int:
@@ -92,19 +99,53 @@ class RequestRouter:
         with self._lock:
             self._leases.pop(record.rid, None)
             if record.rid in self.completed:
-                # exactly-once guard: a request served twice counts once
+                # exactly-once guard: a replayed request that the dead
+                # replica already terminated must not count twice
                 self.duplicates += 1
+                if self.registry is not None:
+                    self.registry.counter("router_duplicate_completions",
+                                          service=self.service).inc()
                 return
+            pre = self.replayed.get(record.rid)
+            if pre is not None and list(record.tokens[:len(pre)]) != pre:
+                # replay determinism check: tokens committed before the
+                # crash must be a prefix of the replayed completion
+                self.replay_mismatches += 1
+                if self.registry is not None:
+                    self.registry.record_event(
+                        "replay_mismatch", rid=record.rid,
+                        committed=pre, got=list(record.tokens))
             self.completed[record.rid] = record
 
     def requeue(self, reqs: list) -> None:
         """Return popped-but-unfinished requests (a killed replica's) to
         the head of the queue; their arrival times stick."""
         with self._lock:
+            self._requeue_locked(reqs)
+
+    def _requeue_locked(self, reqs: list) -> None:
+        for req in reqs:
+            self._leases.pop(req.rid, None)
+        if not self.closed:
+            self._pending.extendleft(reversed(reqs))
+
+    def fail_engine(self, engine_id: str) -> int:
+        """Replica crash recovery: replay every request the dead engine
+        still holds a lease on.  Each re-enters the queue (head) with its
+        committed tokens recorded, so ``complete`` can verify the replayed
+        run reproduces them as a prefix and the exactly-once guard rejects
+        double completion.  Returns the number of requests replayed."""
+        with self._lock:
+            reqs = [req for req, eng in self._leases.values()
+                    if eng == engine_id]
             for req in reqs:
-                self._leases.pop(req.rid, None)
-            if not self.closed:
-                self._pending.extendleft(reversed(reqs))
+                self.replayed[req.rid] = list(req.committed or [])
+            self._requeue_locked(reqs)
+            if self.registry is not None and reqs:
+                self.registry.record_event(
+                    "router_replay", service=self.service,
+                    engine=engine_id, replayed=len(reqs))
+            return len(reqs)
 
     def pending_count(self) -> int:
         return len(self._pending)

@@ -46,3 +46,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
                for i, x in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def tree_unflatten(treedef: Any, leaves) -> Any:
+    """Inverse of ``tree_flatten``: rebuild the nest described by
+    ``treedef`` with ``leaves`` in flatten order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == "*":
+            return next(it)
+        kind, meta, children = d
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(meta, children)}
+        out = [build(c) for c in children]
+        return tuple(out) if kind == "tuple" else out
+
+    tree = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return tree
