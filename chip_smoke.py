@@ -2,6 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # all phases, one CUDA card
+    python3 chip_smoke.py env engine orch    # only these: no kernels
+                                             # line, last line "ok": "partial"
 
 Phases (any failure raises and exits non-zero; no phase's failure is
 caught):
@@ -56,16 +58,27 @@ caught):
    (the second bit-flipped after publishing), evict and migrate, replicate,
    a hard failure of the replica's node with lease replay, and a restore
    that falls back to the first snapshot; run (a)'s tokens, exact launch
-   counts over every replica, seconds and bytes of each operation.
+   counts over every replica, seconds and bytes of each operation;
+16. the control plane at full-width yi-9b (``phase_orch``): ``make_cluster``
+   (two nodes of two slices on the card, PRE_MG) with four mamba2-1.3b
+   batch tasks, the service preempting one by Algorithm 1, a
+   ``LatencySLOPolicy`` autoscaler scaling it to two replicas and back
+   under an open-loop burst (``drive_engine_open_loop``, calibrated from
+   run (a)), the clone's node failing while it holds leases (replay,
+   resubmit), teardown; every request once, sampled tokens equal one
+   engine's, exact launch counts over every engine and batch task,
+   scheduler tick and decode-step seconds, threads ended and memory freed.
 
 Each model's weights are freed before the next model's phases.  The last
-line is ``{"ok": true, "device": {...}}``; the line before it is the card's
+line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
+subset, ``{"ok": "partial", "phases": [...], ...}``); the line before it is the card's
 name and power limit, and the one before that lists every kernel with its
 launches on its main path and its numbers.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import json
@@ -107,7 +120,7 @@ PARITY_F32_TOL = 1e-3
 PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
-          "profile_recurrentgemma", "evict_new", "engine", "cri")
+          "profile_recurrentgemma", "evict_new", "engine", "cri", "orch")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -752,6 +765,9 @@ def _free_cuda():
 
     gc.collect()
     torch.cuda.synchronize()
+    # each (thread, stream) that ran a cuBLAS call holds a workspace from
+    # the caching allocator; drop them so memory_allocated counts tensors
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -1758,6 +1774,492 @@ def _cri(state, cfg, arch, device, want, root):
 
 
 # ---------------------------------------------------------------------------
+# 16. the orchestrator: Algorithm 1, autoscaling, node failure, open loop
+# ---------------------------------------------------------------------------
+
+# make_cluster's two nodes on the one card, two 36 GiB slices each; ``svc``
+# is run (a)'s engine image, ``batch`` phase 7's mamba2 ServeTask (batch
+# 8, prompt 1024, 4 steps of 8 tokens) at priority 0; the load is
+# fig14's live burst: base_frac x the replica rate, 4x it over the middle
+# third of the horizon.  The drive keeps the router open tail_s past the
+# last arrival: the autoscaler scales in once the p95 window empties, and
+# a closed router would end every replica (on an H100 80GB HBM3 at 700 W
+# the burst's backlog drained 42-64 s after the last arrival).  Before
+# the drive, ab_requests requests of ab_tokens tokens are served with the
+# scheduler's tick thread running and parked, in turns
+# (``_ab_orch_threads``)
+ORCH = dict(slices=2, mem_cap=36 << 30, n_batch=4, batch_steps=4,
+            horizon_s=30.0, tail_s=90.0, tokens_range=(8, 65),
+            base_frac=0.3, burst=4.0, slo_mult=2.0, asc_interval_s=0.25,
+            down_cooldown_s=2.0, tick_s=0.02, sample=4, seed=41,
+            ab_requests=4, ab_tokens=24, leak_bytes=32 << 20)
+
+
+def _orch_calibration(state):
+    """The replica rate and SLO from this call's engine run (a), as fig14
+    calibrates: an un-queued request costs its B 1 prefill (the mean
+    ``prefill_admit_512`` EXECUTE) plus (mean_n - 1) TBTs (run (a)'s TBT
+    p50); r = slots / that; the SLO is ``slo_mult`` x that."""
+    a = state["engine"]["a"]
+    prog = f"prefill_admit_{ENGINE['prompt_len']}"
+    ttft = a["program_device_s"][prog] / a["program_execs"][prog]
+    tbt = a["tbt_p50_s"]
+    lo, hi = ORCH["tokens_range"]
+    mean_n = (lo + hi - 1) / 2.0
+    one = ttft + (mean_n - 1) * tbt
+    return {"ttft_s": ttft, "tbt_s": tbt, "mean_new_tokens": mean_n,
+            "uncontended_s": one, "replica_rate": ENGINE["slots"] / one,
+            "slo_s": ORCH["slo_mult"] * one}
+
+
+def phase_orch(state, arch=ENGINE["arch"], device="cuda",
+               batch_arch=PATHS["mamba2"][0]):
+    """Full-width yi-9b served through the whole control plane:
+    ``make_cluster`` -> ``Orchestrator`` (FunkyScheduler, placement,
+    autoscaler) -> NodeAgent -> ContainerEngine -> FunkyRuntime ->
+    EngineServeTask -> paged engine.  Four mamba2 batch tasks fill the
+    four slices; ``svc`` (priority 5) arrives and the scheduler evicts one
+    (Algorithm 1), which resumes or migrates when a slice frees and must
+    finish with an uninterrupted task's tokens.  Once the batch tasks are
+    done, an open-loop burst (``drive_engine_open_loop``) makes the
+    ``LatencySLOPolicy`` autoscaler replicate ``svc``; while the clone
+    holds leases its node fails (``handle_node_failure``: crash, lease
+    replay, resubmit); after the drive the autoscaler scales back in,
+    then ``teardown_service`` and ``cluster.stop``.  Gates: every request
+    once, no duplicate or replay mismatch, sampled tokens (every replayed
+    one among them) equal one engine's, exact launch counts over every
+    engine and batch task, 2 replicas at most with a replicate and a
+    scale_in, a resubmit or restore after the failure, every thread of
+    the phase ended and its device memory freed."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="funky-orch-")
+    try:
+        stats = _orch(state, arch, device, root, batch_arch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if device == "cuda":
+            _free_cuda()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(phase="orch", card=state.get("card"), summary=stats["summary"],
+        phase_s=stats["phase_s"])
+    state["orch"] = stats
+
+
+def _interval_decode(marks, n_rep, busy=()):
+    """Mean ``decode_step`` EXECUTE ms over the drive's one-second marks
+    where ``n_rep`` replicas were deployed and no ``busy`` window (start,
+    end on the marks' clock: a replicate, whose clone is not counted yet
+    while it copies the weights) overlapped, per engine and pooled."""
+    per, tot = {}, [0, 0.0]
+    for (t0, r0, m0), (t1, _, m1) in zip(marks, marks[1:]):
+        if r0 != n_rep or any(s < t1 and t0 < e for s, e in busy):
+            continue
+        for k, (n1, s1) in m1.items():
+            n0, s0 = m0.get(k, (0, 0.0))
+            if n1 > n0:
+                e = per.setdefault(k, [0, 0.0])
+                e[0] += n1 - n0
+                e[1] += s1 - s0
+                tot[0] += n1 - n0
+                tot[1] += s1 - s0
+    return {"decode_steps": tot[0],
+            "decode_step_ms": tot[1] / tot[0] * 1e3 if tot[0] else None,
+            "per_engine_ms": {k: v[1] / v[0] * 1e3 for k, v in per.items()}}
+
+
+def _ab_orch_threads(orch, router, eng, paused, vocab):
+    """The served decode step with the orchestrator's scheduler thread
+    ticking and parked (it blocks on the orchestrator's lock, which the
+    caller holds), in the order ticking, parked, parked, ticking: each
+    turn serves ``ab_requests`` requests of ``ab_tokens`` tokens through
+    the router and reads the engine's mean ``decode_step`` EXECUTE."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(SEED + 1)
+    out = []
+    for i, park in enumerate((False, True, True, False)):
+        if park:
+            orch._lock.acquire()
+            paused.set()
+        try:
+            m0 = _decode_ms(eng)
+            rids = [f"ab{i}-{j}" for j in range(ORCH["ab_requests"])]
+            for rid in rids:
+                router.submit(ServeRequest(
+                    rid=rid, prompt=rng.integers(0, vocab, ENGINE[
+                        "prompt_len"]).astype(np.int32),
+                    max_new_tokens=ORCH["ab_tokens"]))
+            deadline = time.time() + 300
+            while not all(r in router.completed for r in rids):
+                if time.time() > deadline:
+                    raise RuntimeError("orch: the A/B requests did not "
+                                       "complete")
+                time.sleep(0.01)
+            out.append({"scheduler": "parked" if park else "ticking",
+                        **_interval_ms(m0, _decode_ms(eng))})
+        finally:
+            if park:
+                paused.clear()
+                orch._lock.release()
+    return out
+
+
+def _orch(state, arch, device, root, m_arch):
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import (FunkyCL, Monitor, Policy, SliceAllocator,
+                                  TaskImage, TaskStatus, make_cluster)
+    from repro_torch.scaling import (Autoscaler, LatencySLOPolicy,
+                                     OrchestratorScaler, burst_rate,
+                                     drive_engine_open_loop, open_loop,
+                                     reset_router, teardown_service,
+                                     wait_for_service)
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          ServeRequest)
+    from repro_torch.serve.equivalence import (assert_transcripts_equal,
+                                               run_transcript)
+
+    cal = _orch_calibration(state)
+    log(phase="orch", card=state.get("card"), calibration=cal)
+    cfg = get_arch(arch)
+    m_prompt = PATHS["mamba2"][1]
+    svc_im = TaskImage(name="svc", kind="engine-serve", arch=arch,
+                       global_batch=ENGINE["slots"],
+                       prompt_len=ENGINE["prompt_len"],
+                       max_new_tokens=ENGINE["max_new_tokens"],
+                       page_size=ENGINE["page_size"],
+                       kv_pool_pages=ENGINE["pool_pages"],
+                       prompt_buckets=ENGINE["prompt_buckets"],
+                       total_steps=10 ** 9, seed=SEED)
+    batch_im = TaskImage(name="batch", kind="serve", arch=m_arch,
+                         prompt_len=m_prompt, global_batch=8,
+                         total_steps=ORCH["batch_steps"], tokens_per_step=8,
+                         seed=SEED)
+    threads_before = set(threading.enumerate())
+    if device == "cuda":
+        _free_cuda()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    cluster = make_cluster(num_nodes=2, slices_per_node=ORCH["slices"],
+                           images={"svc": svc_im, "batch": batch_im},
+                           mem_cap_bytes=ORCH["mem_cap"],
+                           policy=Policy.PRE_MG, ckpt_root=root,
+                           device=device)
+    orch = cluster.orchestrator
+    reg = orch.metrics
+    ticks = reg.histogram("sched_tick_seconds", window_s=float("inf"),
+                          max_samples=1 << 17)
+    router = reset_router("svc")
+    router.registry = reg
+    wrappers = _wrappers()
+    seen, running_at = {}, {}            # id(rec) -> rec, first RUNNING t
+    stop_scan, paused = threading.Event(), threading.Event()
+
+    def scan():
+        # every task record any node holds, kept once seen: scale-in
+        # deletes records whose engines the launch counts still need
+        while not stop_scan.wait(0.05):
+            if paused.is_set():
+                continue
+            for n in cluster.nodes.values():
+                for rec in list(n.runtime.tasks.values()):
+                    seen.setdefault(id(rec), rec)
+                    if rec.status is TaskStatus.RUNNING:
+                        running_at.setdefault(id(rec), time.time())
+
+    def recs(cid):
+        return [r for r in list(seen.values()) if r.cid == cid]
+
+    def engines():
+        return {f"{r.cid}@{id(r) % 10000}": r.task.engine
+                for r in list(seen.values())
+                if r.image.kind == "engine-serve"
+                and r.task.engine is not None}
+
+    def wait(cond, what, timeout=600):
+        deadline = time.time() + timeout
+        while not cond():
+            bad = [c for c, d in orch.deployments.items()
+                   if d.status == "failed"]
+            if bad:
+                errors = [r.error for c in bad for r in recs(c)]
+                raise RuntimeError(f"orch: {bad} failed waiting for {what}: "
+                                   f"{errors}")
+            if time.time() > deadline:
+                raise RuntimeError(f"orch: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    scanner = threading.Thread(target=scan, name="orch-scan", daemon=True)
+    scanner.start()
+    for w in wrappers.values():          # the main path starts here
+        w.launches = 0
+    t0 = time.perf_counter()
+    orch.start(tick_interval=ORCH["tick_s"])
+    scaler = None
+    try:
+        batch = [orch.submit("batch", cid=f"batch-{i}")
+                 for i in range(ORCH["n_batch"])]
+        wait(lambda: all(any(r.guest_state.step >= 1 for r in recs(b))
+                         for b in batch), "the batch tasks' first steps")
+        t_batch = time.perf_counter() - t0
+        svc = orch.submit("svc", priority=5)
+        svc_node = wait_for_service(cluster, orch, svc, timeout_s=600)
+        t_svc = time.perf_counter() - t0
+        ev = [(e[1], e[2].get("cid")) for e in orch.events]
+        evicted = [c for k, c in ev if k == "evict" and c in batch]
+        if (len(evicted) != 1
+                or ev.index(("evict", evicted[0])) > ev.index(("deploy",
+                                                               svc))):
+            raise AssertionError(f"orch: no scheduler-decided eviction "
+                                 f"before svc's deploy: {ev}")
+        wait(lambda: all(orch.deployments[b].status == "done"
+                         for b in batch), "the batch tasks")
+        t_batch_done = time.perf_counter() - t0
+        last = {b: [r.guest_state.user["last_token"] for r in recs(b)
+                    if r.status is TaskStatus.DONE] for b in batch}
+        want_last = last[[b for b in batch if b != evicted[0]][0]]
+        if any(v != want_last for v in last.values()) or \
+                len(want_last) != 1:
+            raise AssertionError(f"orch: batch tokens differ: {last}")
+        b0 = recs(evicted[0])[0]
+        b0_evict = [e[2] for e in b0.timeline if e[1] == "evict"][0]
+        b0_resume = [e[2] for e in b0.timeline if e[1] == "resume"][0]
+        ab = _ab_orch_threads(orch, router, recs(svc)[0].task.engine,
+                              paused, cfg.vocab_size)
+
+        scaler = OrchestratorScaler(orch, svc, service="svc")
+        asc = Autoscaler(LatencySLOPolicy(slo_p95_s=cal["slo_s"],
+                                          growth=2.0),
+                         min_replicas=1, max_replicas=2,
+                         scale_down_cooldown_s=ORCH["down_cooldown_s"])
+        orch.attach_autoscaler(asc, scaler, service="svc",
+                               interval_s=ORCH["asc_interval_s"])
+        T, r = ORCH["horizon_s"], cal["replica_rate"]
+        reqs = open_loop(burst_rate(ORCH["base_frac"] * r, ORCH["burst"],
+                                    T / 3, T / 3), T, seed=ORCH["seed"],
+                         mean_service_s=1.0 / r,
+                         tokens_range=ORCH["tokens_range"])
+        failure, marks, timeline = {}, [], []
+
+        def on_tick(now, n_rep, queue, p95):
+            marks.append((now, n_rep, {k: _decode_ms(e)
+                                       for k, e in engines().items()}))
+            timeline.append({"t": now, "replicas": n_rep, "queue": queue,
+                             "p95_s": p95, "in_flight": router.in_flight})
+            if failure or n_rep < 2 or not scaler.replica_cids:
+                return
+            clone = scaler.replica_cids[-1]
+            node = orch._sched_tasks[clone].node_id
+            rec = cluster.nodes[node].runtime.tasks.get(clone)
+            if rec is None or rec.task.engine is None:
+                return
+            with router._lock:
+                held = [rid for rid, (_, e) in router._leases.items()
+                        if e == clone]
+            if not held:
+                return
+            t = time.perf_counter()
+            orch.handle_node_failure(node)
+            failure.update(t=now, node=node, cid=clone, leased=len(held),
+                           seconds=time.perf_counter() - t)
+
+        t_drive0, t_drive_wall = time.perf_counter(), reg.clock()
+        res = drive_engine_open_loop(
+            orch, scaler, reqs, duration_s=T + ORCH["tail_s"],
+            slo_s=cal["slo_s"],
+            service="svc", prompt_len=ENGINE["prompt_len"],
+            slots_per_replica=ENGINE["slots"],
+            tokens_range=ORCH["tokens_range"], drain_timeout_s=300.0,
+            on_tick=on_tick)
+        t_drive = time.perf_counter() - t_drive0
+        t_drive_end = reg.clock()
+        teardown_service(orch, scaler)
+    finally:
+        router.close()
+        cluster.stop()
+        stop_scan.set()
+        scanner.join()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    events = [e[1] for e in orch.events]
+
+    # -- what the phase reports --------------------------------------------
+    engs = engines()
+    steps = sum(e.program_execs.get("decode_step", 0) for e in engs.values())
+    prefills = sum(n for e in engs.values()
+                   for p, n in e.program_execs.items()
+                   if p.startswith("prefill_admit"))
+    m_prefills = sum(1 for e in orch.events
+                     if e[1] == "deploy" and e[2]["cid"] in batch)
+    L, mL = cfg.num_layers, get_arch(m_arch).num_layers
+    expected = {"K1": 0, "K1p": L * steps, "K2": L * prefills,
+                "K3": mL * m_prefills, "K4": 0}
+    completed = [router.completed[q.rid] for q in reqs
+                 if q.rid in router.completed]
+    ttft = [c.ttft_s for c in completed]
+    clone0 = [r for r in seen.values() if r.cid == failure.get("cid")
+              and any(e[1] == "replicated" for e in r.timeline)]
+    rep = ([e[2] for e in clone0[0].timeline if e[1] == "replicated"][0]
+           if clone0 else None)
+
+    def setup_s(rec):
+        start = [e[0] for e in rec.timeline if e[1] == "start"]
+        return (running_at[id(rec)] - start[0]
+                if start and id(rec) in running_at else None)
+
+    svc_rec = recs(svc)[0]
+    resub = [r for r in seen.values() if r.cid == failure.get("cid")
+             and any(e[1] == "start" for e in r.timeline)]
+    reconfig = setup_s(resub[0]) if resub else None
+    a = state["engine"]["a"]
+    ck1 = state.get("cri", {}).get("checkpoint1", {})
+    replicas_ts = [(t - t_drive_wall, v) for t, v in reg.series(
+        "replicas_ts", service="svc").points()]
+    sampled = sorted(set(router.replayed) | set(sorted(res.prompts)
+                                               [:ORCH["sample"]]))
+    violations = sum(1 for c in completed if c.e2e_s > cal["slo_s"])
+    replicating = [(e[0] - e[2]["total_seconds"] - t_drive_wall,
+                    e[0] - t_drive_wall)
+                   for r in seen.values() for e in r.timeline
+                   if e[1] == "replicated"]
+    summary = {
+        "requests": len(reqs), "served": len(completed),
+        "slo_s": cal["slo_s"],
+        "slo_attainment": 1 - violations / max(len(completed), 1),
+        "violations": violations, "max_replicas": res.max_replicas,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "replicas_ts": replicas_ts, "scaled_in_by_autoscaler": any(
+            e[1] == "scale_in" and e[0] < t_drive_end
+            for e in orch.events),
+        "decode_scheduler_ab": ab,
+        "scale_out": rep, "preemption": {
+            "batch": evicted[0], "evict": b0_evict, "resume": b0_resume},
+        "failure": failure, "replayed": sorted(router.replayed),
+        "replicating_s": replicating,
+        "decode_alone": _interval_decode(marks, 1, replicating),
+        "decode_two_replicas": _interval_decode(marks, 2, replicating),
+        "decode_engine_phase_ms": a["program_device_s"]["decode_step"]
+        / a["program_execs"]["decode_step"] * 1e3,
+        "sched_tick_p50_s": ticks.quantile(0.5),
+        "sched_tick_p99_s": ticks.quantile(0.99),
+        "sched_ticks": ticks.count, "sched_tick_s_total": ticks.sum,
+        "sim_params_measured": {
+            "host_bw": b0_evict["saved_bytes"] / b0_evict["evict_seconds"],
+            "reconfig_s": reconfig, "svc_setup_s": setup_s(svc_rec),
+            "disk_bw": (ck1["written_bytes"] / ck1["write_seconds"]
+                        if ck1 else None)},
+        "decode_steps": steps, "prefills": prefills,
+        "mamba2_prefills": m_prefills, "launches": launches,
+        "seconds": {"batch_up": t_batch, "svc_up": t_svc,
+                    "batch_done": t_batch_done, "drive": t_drive,
+                    "wall": wall},
+        "served_by": {k: len(e.completed) for k, e in engs.items()},
+        "svc_node": svc_node}
+    if device == "cuda":
+        summary["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the reference's SimParams fields, as this call measured them (the
+    # port's SimParams keep the reference's constants)
+    log(phase="orch", card=state.get("card"),
+        sim_params_measured=summary["sim_params_measured"])
+    log(phase="orch", card=state.get("card"), events=events,
+        timeline=timeline, decisions=[(d.t, d.current, d.desired, d.reason)
+                                      for d in asc.decisions if d.applied],
+        **summary)
+
+    # -- gates -------------------------------------------------------------
+    if res.served != len(reqs) + len(ab) * ORCH["ab_requests"] or \
+            len(completed) != len(reqs):
+        raise AssertionError(f"orch: served {len(completed)} of "
+                             f"{len(reqs)} ({res.served} with the A/B's)")
+    if router.duplicates or router.replay_mismatches:
+        raise AssertionError(f"orch: {router.duplicates} duplicates, "
+                             f"{router.replay_mismatches} replay mismatches")
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"orch: launch counts {launches}, expected "
+                             f"{expected} ({steps} decode steps, {prefills} "
+                             f"prefills, {m_prefills} mamba2 prefills)")
+    # teardown_service scales in whatever still runs, so only events
+    # before the drive's end show the autoscaler's own replicate and scale-in
+    if res.max_replicas != 2 or not any(
+            e[1] == "replicate" and e[0] < t_drive_end
+            for e in orch.events) or not summary["scaled_in_by_autoscaler"]:
+        raise AssertionError(
+            f"orch: max replicas {res.max_replicas}, events before the "
+            f"drive's end {[e[1] for e in orch.events if e[0] < t_drive_end]}")
+    if not failure:
+        raise AssertionError("orch: no replica held a lease while two "
+                             "served, so no node failed")
+    after = events[events.index("router_replay"):] \
+        if "router_replay" in events else []
+    if not router.replayed or not ({"restored", "resubmitted"}
+                                   & set(after)):
+        raise AssertionError(f"orch: the failure replayed "
+                             f"{sorted(router.replayed)}; events {events}")
+
+    # -- the sampled requests on one engine --------------------------------
+    n_tok = {q.rid: q.n_tokens for q in reqs}
+    got = {rid: list(router.completed[rid].tokens) for rid in sampled}
+    seen.clear()
+    del engs, clone0, resub, svc_rec, b0, cluster, orch, scaler, asc
+    reset_router("svc")
+    if device == "cuda":
+        _free_cuda()
+        # no task's weights (mamba2-1.3b: 2.7 GB) and no KV pool (yi-9b:
+        # 0.25 GB) may outlive the teardown
+        leaked = torch.cuda.memory_allocated() - mem_before
+        live = collections.Counter(
+            b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated")
+        log(phase="orch", card=state.get("card"),
+            allocated_after_teardown_bytes=leaked,
+            live_blocks_by_size=sorted(live.items(), reverse=True)[:20])
+        if leaked > ORCH["leak_bytes"]:
+            raise AssertionError(f"orch: {leaked / 1e9:.3f} GB still "
+                                 "allocated after the teardown (live "
+                                 f"blocks by size: {live.most_common(10)})")
+    deadline = time.time() + 30
+    while True:
+        alive = [t.name for t in threading.enumerate()
+                 if t not in threads_before and t.is_alive()]
+        if not alive or time.time() > deadline:
+            break
+        time.sleep(0.1)
+    if alive:
+        raise AssertionError(f"orch: threads still running: {alive}")
+
+    def factory():
+        mon = Monitor("orch-ref", SliceAllocator("node0", 1,
+                                                 mem_cap_bytes=64 << 30,
+                                                 device=device),
+                      telemetry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(arch, FunkyCL(mon), seed=SEED,
+                                       engine_id="orch-ref", **_engine_kw())
+        eng.setup()
+        return mon, eng
+
+    ref_tokens, eng = run_transcript(factory, lambda: [
+        ServeRequest(rid=rid, prompt=res.prompts[rid],
+                     max_new_tokens=n_tok[rid]) for rid in sampled])
+    del eng
+    assert_transcripts_equal(got, ref_tokens, context="orch sampled")
+    log(phase="orch", card=state.get("card"), sampled=sampled,
+        sampled_equal=True)
+    state.setdefault("launches", {})["orch"] = launches
+    return {"summary": summary}
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -1787,10 +2289,13 @@ def kernel_line(state):
             "event_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_device_ms")})
-    # K2 at yi-9b's shape also runs the engine's and the CRI path's
-    # admissions (B 1)
+    # K2 at yi-9b's shape also runs the engine's, the CRI path's and the
+    # orchestrated service's admissions (B 1); K3 the orchestrated batch
+    # tasks' prefills
     rows[2]["launches_engine"] = state["launches"]["engine"]["K2"]
     rows[2]["launches_cri"] = state["launches"]["cri"]["K2"]
+    rows[2]["launches_orch"] = state["launches"]["orch"]["K2"]
+    rows[4]["launches_orch"] = state["launches"]["orch"]["K3"]
     r = state["k1p"]["path"]
     rows.append({
         "name": "decode_attention_paged", "route": "cuda",
@@ -1798,6 +2303,7 @@ def kernel_line(state):
         "replaces": "src/repro/kernels/decode_attention/kernel.py:83",
         "launches": state["launches"]["engine"]["K1p"],
         "launches_cri": state["launches"]["cri"]["K1p"],
+        "launches_orch": state["launches"]["orch"]["K1p"],
         "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
         "event_ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1805,7 +2311,7 @@ def kernel_line(state):
     return {"kernels": rows}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1815,20 +2321,30 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    phases = argv or PHASES
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 2
     state: dict = {}
     t0 = time.perf_counter()
-    for p in PHASES:
+    for p in phases:
         t = time.perf_counter()
         globals()[f"phase_{p}"](state)
         log(phase=p, done_s=time.perf_counter() - t)
-    print(json.dumps(kernel_line(state)), flush=True)
+    full = tuple(phases) == PHASES
+    if full:
+        print(json.dumps(kernel_line(state)), flush=True)
     print(state.get("card", ""), flush=True)
     log(total_s=time.perf_counter() - t0)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    # a subset skips the kernel checks: its last line must not read as a pass
+    print(json.dumps({"ok": True, "device": device} if full else
+                     {"ok": "partial", "phases": list(phases),
+                      "device": device}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

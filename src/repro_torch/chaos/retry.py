@@ -1,7 +1,7 @@
 """Bounded retry with exponential backoff + deadline.
 
-The recovery half of the chaos layer: monitor EXECUTEs wrap their fallible
-calls in ``retry_call`` so a transient fault (injected or environmental)
+The recovery half of the chaos layer: monitor EXECUTEs and the
+orchestrator's actions wrap their fallible calls in ``retry_call`` so a transient fault (injected or environmental)
 costs a backoff, not a dead task.  Anything
 that is not a ``TransientFault`` — validation errors, ``NodeFailed``,
 ``InjectedCrash`` — propagates immediately: retrying a deterministic
@@ -36,6 +36,9 @@ class RetryPolicy:
 
 DEFAULT_EXECUTE_RETRY = RetryPolicy(max_attempts=3, base_backoff_s=0.01,
                                     max_backoff_s=0.25, deadline_s=5.0)
+# orchestrator actions (deploy / evict / resume / migrate / restore)
+DEFAULT_ACTION_RETRY = RetryPolicy(max_attempts=3, base_backoff_s=0.05,
+                                   max_backoff_s=1.0, deadline_s=15.0)
 
 
 def retry_call(fn: Callable, policy: RetryPolicy, *,

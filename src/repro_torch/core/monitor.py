@@ -25,7 +25,7 @@ import queue
 import threading
 import time
 from collections import defaultdict
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -78,6 +78,9 @@ class Monitor:
         self.tracer = tracer
         self.allocator = allocator
         self.programs = programs if programs is not None else ProgramCache()
+        # this task's own programs: the node cache may hold another task's
+        # program under the same id, and an EXECUTE runs the task's own
+        self._task_programs: Dict[str, Program] = {}
         self.buffers = BufferTable()
         self.request_queue: "queue.Queue[FunkyRequest]" = queue.Queue()
         self.vslice: Optional[VSlice] = None
@@ -133,8 +136,9 @@ class Monitor:
                 f"no free vSlice on node {self.allocator.node_id}")
         self.vslice = vs
         self.programs.register(program)
+        self._task_programs[program.program_id] = program
         entry = self.programs.get_or_compile(
-            program.program_id, abstract_args, donate_argnums)
+            program, abstract_args, donate_argnums)
         self.metrics["reconfig_seconds"] += time.perf_counter() - t0
         self.metrics_hist["reconfig"].append(entry.compile_seconds)
         self._spawn_worker()
@@ -145,7 +149,8 @@ class Monitor:
                          donate_argnums: tuple = ()):
         """Additional programs on the already-acquired slice."""
         self.programs.register(program)
-        self.programs.get_or_compile(program.program_id, abstract_args,
+        self._task_programs[program.program_id] = program
+        self.programs.get_or_compile(program, abstract_args,
                                      donate_argnums)
 
     def vfpga_exit(self):
@@ -338,7 +343,8 @@ class Monitor:
             self.chaos.raise_if("monitor.execute",
                                 key=f"{self.task_id}:{req.program_id}")
         self._validate_buffs(list(req.in_buffs) + list(req.out_buffs))
-        if req.program_id not in self.programs:
+        program = self._task_programs.get(req.program_id)
+        if program is None:
             raise MonitorError(f"program {req.program_id!r} not registered")
         key = (req.program_id, req.in_buffs, req.out_buffs, req.donate,
                tuple(self._const_sig(c) for c in req.const_args))
@@ -362,7 +368,7 @@ class Monitor:
                 donate_argnums = tuple(
                     i for i, b in enumerate(req.in_buffs)
                     if b in req.out_buffs)
-            entry = self.programs.get_or_compile(req.program_id, abstract,
+            entry = self.programs.get_or_compile(program, abstract,
                                                  donate_argnums)
         args = tuple(self.buffers.get(i).device_value for i in req.in_buffs)
         args = args + tuple(req.const_args)

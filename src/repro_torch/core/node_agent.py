@@ -2,7 +2,9 @@
 CRI, attaching Funky metadata as annotations (paper §3.5, Table 3).  Each
 operation and the node's slice occupancy are published into the shared
 telemetry registry (``node_ops_total`` by node and op, ``node_free_slices``
-by node)."""
+by node).  The introspection calls (free and total slices, task status,
+progress and programs, the node's warm program cache) are what the
+orchestrator's scheduler and placement layer read."""
 
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ class NodeFailed(RuntimeError):
 class NodeAgent:
     def __init__(self, node_id: str, engine: ContainerEngine,
                  metrics: Optional[MetricsRegistry] = None,
+                 failure_domain: Optional[str] = None,
                  chaos=None):
         self.node_id = node_id
         self.engine = engine
@@ -31,6 +34,9 @@ class NodeAgent:
         self.failed = False
         self._hb = time.time()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # failure/tenant domain label for replica anti-affinity (rack, PDU,
+        # host...); defaults to the node itself — every node its own domain
+        self.failure_domain = failure_domain or node_id
 
     def _count_op(self, op: str):
         self.metrics.counter("node_ops_total", node=self.node_id,
@@ -161,6 +167,9 @@ class NodeAgent:
         self._check()
         return self.engine.runtime.allocator.free_count()
 
+    def num_slices(self) -> int:
+        return len(self.engine.runtime.allocator.slices)
+
     def task_status(self, cid: str) -> Optional[TaskStatus]:
         self._check()
         rec = self.engine.runtime.tasks.get(cid)
@@ -169,3 +178,28 @@ class NodeAgent:
     def latest_snapshot(self, cid: str) -> Optional[str]:
         rec = self.engine.runtime.tasks.get(cid)
         return rec.latest_snapshot if rec else None
+
+    def task_progress(self, cid: str) -> Optional[int]:
+        """Guest step counter — published into the shared registry as the
+        ``task_progress_steps`` series the ``MigrationController`` reads."""
+        self._check()
+        rec = self.engine.runtime.tasks.get(cid)
+        return rec.guest_state.step if rec else None
+
+    def warm_programs(self) -> tuple:
+        """Program ids resident in this node's compile ("bitstream") cache
+        — the placement layer's warm-cache affinity signal: a node already
+        holding a service's programs skips reconfiguration on deploy."""
+        self._check()
+        return tuple(self.engine.runtime.programs.program_ids())
+
+    def task_programs(self, cid: str) -> Optional[tuple]:
+        """Program ids a task's guest needs; the orchestrator caches them
+        per image so future replicas can be steered toward warm nodes.
+        ``None`` while the guest is still booting (setup not finished —
+        ask again later); an empty tuple is a definitive "no programs"."""
+        self._check()
+        rec = self.engine.runtime.tasks.get(cid)
+        if rec is None or rec.status is TaskStatus.CREATED:
+            return None
+        return tuple(rec.task.program_ids())

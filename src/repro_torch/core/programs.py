@@ -9,10 +9,17 @@ are warm hits.  Stats feed the same counters as the reference.
 Donation: a program that writes some of its arguments in place declares
 them in ``inplace_argnums``; an EXECUTE must donate those (the monitor
 donates inputs that are also outputs), or the lookup raises.
+
+The cache is node-wide and keyed by program id and signature, so two
+tasks of different models on one node can register different programs
+under one id (every task's weights come from an ``init_params``).  A
+lookup therefore names the caller's own ``Program``: a warm entry counts
+as a hit, but the entry returned always runs the caller's function.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
@@ -55,17 +62,12 @@ class ProgramCache:
         with self._lock:
             self._programs[program.program_id] = program
 
-    def __contains__(self, program_id: str) -> bool:
-        return program_id in self._programs
-
-    def get_program(self, program_id: str) -> Program:
-        return self._programs[program_id]
-
-    def get_or_compile(self, program_id: str, abstract_args: tuple,
+    def get_or_compile(self, prog: Program, abstract_args: tuple,
                        donate_argnums: tuple = ()) -> CompiledEntry:
-        """Entry for ``fn`` at the given abstract args (cached on the
-        signature fingerprint and the donated argnums)."""
-        prog = self._programs[program_id]
+        """Entry for the caller's own ``prog`` at the given abstract args
+        (cached on its program id, the signature fingerprint and the
+        donated argnums)."""
+        program_id = prog.program_id
         missing = set(prog.inplace_argnums) - set(donate_argnums)
         if missing:
             raise ValueError(
@@ -77,6 +79,8 @@ class ProgramCache:
             hit = self._compiled.get(key)
             if hit is not None:
                 self.stats["hits"] += 1
+                if hit.compiled is not prog.fn:
+                    hit = dataclasses.replace(hit, compiled=prog.fn)
                 return hit
         # eager PyTorch: nothing to compile; the kernels a program launches
         # are built at their first launch

@@ -1,17 +1,19 @@
-"""Dependency-free telemetry registry the monitor publishes to.
+"""Dependency-free telemetry registry shared by both execution planes
+(a copy of the reference package's ``scaling/metrics.py``).
 
-A copy of the part of the reference package's registry that the monitor,
-the chaos hooks, the serving engine and the request router use: counters,
-gauges (with a per-label lookup for KV-aware routing), windowed
-histograms, a bounded event ring, and one snapshot of them all. The
-clock is injectable, so a replayed trace can stamp samples with virtual
-time.
+The live runtime (``Monitor``, ``NodeAgent``, ``Orchestrator``, the
+serving engine) and the discrete-event ``Simulator`` publish into the
+*same* metric types with the *same* naming schema; the only difference is
+the injected clock: wall time for the live plane, the simulator's virtual
+``now`` for replayed traces.  That symmetry is what lets the autoscaler
+run unchanged against either plane.
 
 Types:
 
 * ``Counter``      monotonically increasing float (requests_total, ...)
 * ``Gauge``        last-write-wins float (queue_depth, replicas, ...)
 * ``Histogram``    windowed samples with p50/p95/p99 (request latency)
+* ``TimeSeries``   fixed-capacity ring buffer of (t, value) observations
 
 All metrics are identified by ``name`` plus sorted key=value labels, printed
 Prometheus-style: ``request_latency_seconds{service=svc}``.
@@ -76,8 +78,8 @@ class Histogram:
         self._samples: deque = deque(maxlen=max_samples)   # (t, value)
         self.count = 0            # cumulative, never evicted
         self.sum = 0.0
-        # writers (monitor workers) race readers (snapshots) on the
-        # deque; guard every touch
+        # writers (monitor workers, drive loop) race readers (autoscaler
+        # reconcile thread) on the deque; guard every touch
         self._lock = threading.Lock()
 
     def observe(self, value: float):
@@ -103,8 +105,8 @@ class Histogram:
 
         Sentinel contract: an *empty* window (nothing observed yet, or all
         samples pruned by ``window_s``) returns ``math.nan`` — never raises
-        and never reports a stale value.  Consumers must treat NaN as "no
-        data".  ``q`` is
+        and never reports a stale value.  Consumers (autoscaler signals,
+        the Prometheus exporter) must treat NaN as "no data".  ``q`` is
         clamped to [0, 1] so an out-of-range request cannot index past the
         sample list."""
         vals = sorted(self.window_values())
@@ -137,11 +139,50 @@ class Histogram:
         return out
 
 
+class TimeSeries:
+    """Ring buffer of (t, value); oldest points evicted at capacity."""
+
+    def __init__(self, clock: Clock, capacity: int = 1024):
+        self._clock = clock
+        self.capacity = capacity
+        self._points: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def record(self, value: float, t: Optional[float] = None):
+        with self._lock:
+            self._points.append((self._clock() if t is None else t,
+                                 float(value)))
+
+    def points(self) -> List[Tuple[float, float]]:
+        with self._lock:
+            return list(self._points)
+
+    def window(self, t0: float, t1: float) -> List[Tuple[float, float]]:
+        return [(t, v) for t, v in self.points() if t0 <= t <= t1]
+
+    def __len__(self):
+        return len(self._points)
+
+    def time_weighted_mean(self) -> float:
+        """Mean of a step function sampled at the recorded points."""
+        pts = self.points()
+        if not pts:
+            return math.nan
+        if len(pts) == 1:
+            return pts[0][1]
+        area = 0.0
+        for (t0, v0), (t1, _) in zip(pts, pts[1:]):
+            area += v0 * (t1 - t0)
+        span = pts[-1][0] - pts[0][0]
+        return area / span if span > 0 else pts[-1][1]
+
+
 class MetricsRegistry:
     """Get-or-create metric store; thread-safe, clock-injectable.
 
-    Live components pass nothing (wall clock); a replay passes
-    ``clock=lambda: sim.now`` so every sample carries virtual time.
+    Live components pass nothing (wall clock); the simulator passes
+    ``clock=lambda: sim.now`` so every sample carries virtual time and the
+    emitted schema is identical across planes.
     """
 
     def __init__(self, clock: Optional[Clock] = None,
@@ -151,10 +192,12 @@ class MetricsRegistry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
-        # gauge key -> (name, sorted label items), for label lookups
-        self._gauge_labels: Dict[str, Tuple[str, tuple]] = {}
-        # flight recorder: bounded ring of notable events (faults,
-        # execute retries and failures) for post-mortem dumps.
+        self._series: Dict[str, TimeSeries] = {}
+        # key -> (bare name, sorted label items); lets the Prometheus
+        # exporter re-quote labels without parsing flattened keys
+        self._meta: Dict[str, Tuple[str, Tuple[Tuple[str, str], ...]]] = {}
+        # flight recorder: bounded ring of notable events (admissions,
+        # retirements, evictions, scaling actions) for post-mortem dumps.
         # Guarded by its own lock so event bursts never contend with the
         # metric get-or-create path; the deque maxlen enforces the cap
         # even under concurrent writers.
@@ -162,12 +205,16 @@ class MetricsRegistry:
         self._events_lock = threading.Lock()
         self._event_seq = 0
 
+    def _remember(self, key: str, name: str, labels: Dict[str, str]):
+        self._meta[key] = (name, tuple(sorted(labels.items())))
+
     # -- get-or-create accessors -------------------------------------------
     def counter(self, name: str, **labels) -> Counter:
         key = metric_key(name, labels)
         with self._lock:
             if key not in self._counters:
                 self._counters[key] = Counter()
+                self._remember(key, name, labels)
             return self._counters[key]
 
     def gauge(self, name: str, **labels) -> Gauge:
@@ -175,27 +222,79 @@ class MetricsRegistry:
         with self._lock:
             if key not in self._gauges:
                 self._gauges[key] = Gauge()
-                self._gauge_labels[key] = (name, tuple(sorted(
-                    labels.items())))
+                self._remember(key, name, labels)
             return self._gauges[key]
 
-    def histogram(self, name: str, **labels) -> Histogram:
+    def histogram(self, name: str, window_s: Optional[float] = None,
+                  max_samples: Optional[int] = None, **labels) -> Histogram:
+        """Get-or-create; an explicit ``window_s``/``max_samples`` always
+        wins, so configuration is order-independent — a reader that merely
+        gets the histogram first (e.g. ``signals_from_registry``) cannot
+        pin the defaults."""
         key = metric_key(name, labels)
         with self._lock:
-            if key not in self._histograms:
-                self._histograms[key] = Histogram(self.clock)
-            return self._histograms[key]
+            h = self._histograms.get(key)
+            if h is None:
+                h = Histogram(self.clock,
+                              window_s=60.0 if window_s is None else window_s,
+                              max_samples=max_samples or 4096)
+                self._histograms[key] = h
+                self._remember(key, name, labels)
+            else:
+                if window_s is not None:
+                    h.window_s = window_s
+                if max_samples is not None \
+                        and max_samples != h._samples.maxlen:
+                    with h._lock:
+                        h._samples = deque(h._samples,
+                                           maxlen=max_samples)
+            return h
+
+    def series(self, name: str, capacity: int = 1024, **labels) -> TimeSeries:
+        key = metric_key(name, labels)
+        with self._lock:
+            if key not in self._series:
+                self._series[key] = TimeSeries(self.clock, capacity=capacity)
+                self._remember(key, name, labels)
+            return self._series[key]
+
+    def drop_series(self, name: str, **labels) -> None:
+        """Remove one time series (e.g. a finished task's progress
+        history) so per-entity series don't accumulate forever."""
+        key = metric_key(name, labels)
+        with self._lock:
+            self._series.pop(key, None)
+            if (key not in self._counters and key not in self._gauges
+                    and key not in self._histograms):
+                self._meta.pop(key, None)
+
+    def gauge_values(self, name: str, **labels) -> Dict[str, float]:
+        """All gauges of one metric family whose labels contain ``labels``
+        — e.g. every replica's ``kv_pages_in_use_ratio`` for a service, so
+        a drive loop can aggregate per-engine gauges into the service-level
+        signal the autoscaler reads."""
+        want = set(labels.items())
+        out = {}
+        with self._lock:
+            for key, g in self._gauges.items():
+                mname, items = self._meta.get(key, (None, ()))
+                if mname == name and want <= set(items):
+                    out[key] = g.value
+        return out
 
     def labeled_gauge_values(self, name: str, **labels,
                              ) -> List[Tuple[Dict[str, str], float]]:
-        """``(label_dict, value)`` of every gauge of family ``name`` whose
-        labels contain ``labels`` (e.g. each engine's ``kv_free_pages`` of
-        a service)."""
+        """Like ``gauge_values`` but returns ``(label_dict, value)`` pairs,
+        so a caller can select on a specific label (e.g. pick the engine
+        with the most ``kv_free_pages``) without parsing flattened keys."""
         want = set(labels.items())
+        out = []
         with self._lock:
-            return [(dict(items), self._gauges[key].value)
-                    for key, (mname, items) in self._gauge_labels.items()
-                    if mname == name and want <= set(items)]
+            for key, g in self._gauges.items():
+                mname, items = self._meta.get(key, (None, ()))
+                if mname == name and want <= set(items):
+                    out.append((dict(items), g.value))
+        return out
 
     # -- flight recorder ----------------------------------------------------
     def record_event(self, kind: str, **fields):
@@ -203,28 +302,111 @@ class MetricsRegistry:
         ``seq`` is a monotonic sequence number assigned under the event
         lock, so total order is recoverable even when the injected clock is
         coarse (virtual time) or two threads race on the same instant.
-        Not for per-token hot paths."""
+        Not for per-token hot paths — admissions, retirements, evictions,
+        scaling decisions and the like."""
         with self._events_lock:
             seq = self._event_seq
             self._event_seq += 1
             self._events.append((self.clock(), kind, fields, seq))
 
-    def flight_record_to_file(self, path: str, **context) -> str:
-        """Write ``snapshot()`` plus the caller's context (e.g. the failing
-        engine and the error) as JSON to ``path``: the event ring outlives
-        the process that crashed."""
+    def flight_record(self, series_tail: int = 64) -> dict:
+        """Post-mortem dump: the event ring plus the tail of every time
+        series — everything needed to reconstruct 'what just happened'
+        after an SLO blowup, without scraping histories elsewhere."""
+        with self._events_lock:
+            events = list(self._events)
+        with self._lock:
+            series = {k: s.points()[-series_tail:]
+                      for k, s in self._series.items()}
+        return {"ts": self.clock(), "events": events,
+                "series_tail": series}
+
+    def flight_record_to_file(self, path: str, series_tail: int = 64,
+                              **context) -> str:
+        """Serialize ``flight_record()`` (plus caller context, e.g. the
+        crashing engine id and exception text) to a JSON file.  Invoked on
+        engine crash paths so the event ring survives the process."""
         import json
 
-        dump = self.snapshot()
-        dump["events"] = [{"t": t, "kind": kind, "fields": fields, "seq": seq}
-                          for t, kind, fields, seq in dump["events"]]
-        dump["context"] = {k: str(v) for k, v in context.items()}
+        dump = self.flight_record(series_tail=series_tail)
+        dump["events"] = [
+            {"t": t, "kind": kind, "fields": fields, "seq": seq}
+            for t, kind, fields, seq in dump["events"]]
+        if context:
+            dump["context"] = {k: str(v) for k, v in context.items()}
         with open(path, "w") as f:
             json.dump(dump, f, default=str)
         return path
 
+    # -- export ------------------------------------------------------------
+    @staticmethod
+    def _prom_quote(items: Tuple[Tuple[str, str], ...]) -> str:
+        """Prometheus-quoted label string (escaped backslash/quote/newline)."""
+        if not items:
+            return ""
+        def esc(v) -> str:
+            return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+                    .replace("\n", "\\n"))
+        return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in items) + "}"
+
+    def to_prometheus_text(self) -> str:
+        """Prometheus exposition format (text/plain; version 0.0.4).
+
+        Counters and gauges map directly; histograms are exported as
+        summaries (windowed quantiles + cumulative _sum/_count).  Samples
+        are grouped per metric family (one # TYPE header, contiguous
+        lines), as strict parsers require.  Time series are post-mortem
+        artifacts and are served by ``flight_record`` instead."""
+        with self._lock:
+            counters = list(self._counters.items())
+            gauges = list(self._gauges.items())
+            hists = list(self._histograms.items())
+            meta = dict(self._meta)
+
+        families: Dict[str, List[str]] = {}
+        order: List[Tuple[str, str]] = []    # (name, kind) in first-seen order
+
+        def family(key: str, kind: str) -> Tuple[str, List[str], tuple]:
+            name, items = meta.get(key, (key, ()))
+            if name not in families:
+                families[name] = []
+                order.append((name, kind))
+            return name, families[name], items
+
+        for key, c in counters:
+            name, fam, items = family(key, "counter")
+            fam.append(f"{name}{self._prom_quote(items)} {c.value:g}")
+        for key, g in gauges:
+            # NaN/inf gauges are tombstones (e.g. ``evacuate()`` poisons
+            # spec_accept_rate so a stale value can't steer the autoscaler)
+            # — meaningful in-process, but a literal ``nan`` sample breaks
+            # strict Prometheus scrapers, so non-finite gauges are dropped
+            # from the export.  (Histogram quantiles keep NaN: summaries
+            # legitimately report "no data in window".)
+            if not math.isfinite(g.value):
+                continue
+            name, fam, items = family(key, "gauge")
+            fam.append(f"{name}{self._prom_quote(items)} {g.value:g}")
+        for key, h in hists:
+            name, fam, items = family(key, "summary")
+            for q in (0.5, 0.95, 0.99):
+                v = h.quantile(q)
+                lab = self._prom_quote(items + (("quantile", f"{q:g}"),))
+                fam.append(f"{name}{lab} "
+                           f"{'NaN' if math.isnan(v) else f'{v:g}'}")
+            lab = self._prom_quote(items)
+            fam.append(f"{name}_sum{lab} {h.sum:g}")
+            fam.append(f"{name}_count{lab} {h.count:g}")
+
+        lines: List[str] = []
+        for name, kind in order:
+            lines.append(f"# TYPE {name} {kind}")
+            lines.extend(families[name])
+        return "\n".join(lines) + "\n"
+
     def snapshot(self) -> dict:
-        """Every metric's value and the event ring (ts = injected clock)."""
+        """One schema for live and simulated runs (ts = injected clock),
+        plus the event ring."""
         with self._events_lock:
             events = list(self._events)
         with self._lock:
@@ -234,5 +416,6 @@ class MetricsRegistry:
                 "gauges": {k: g.value for k, g in self._gauges.items()},
                 "histograms": {k: h.summary()
                                for k, h in self._histograms.items()},
+                "series": {k: s.points() for k, s in self._series.items()},
                 "events": events,
             }

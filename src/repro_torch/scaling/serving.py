@@ -1,22 +1,58 @@
-"""The service-scoped request frontend of the per-request serving path:
-``RequestRouter`` (the reference's ``scaling/serving.py``, its intake,
-KV-aware pop, completion, requeue and crash replay; prefix-warmth probes,
-engine roles, lease transfer and the open-loop drive loops are not ported
-yet).
+"""The per-request serving path's frontend and the live-plane drive loops
+(the reference's ``scaling/serving.py``; its prefix-warmth probes, engine
+roles and lease transfer are not ported yet).
 
-Requests are published to the router; every ``EngineServeTask`` replica's
-continuous-batching engine pulls admissible requests from it in ``pump``
-and reports completions back, so the latencies in the registry are
-engine-measured, not modeled.
+* ``RequestRouter`` — intake, KV-aware pop, completion, requeue and crash
+  replay.  Requests are published to the router; every ``EngineServeTask``
+  replica's continuous-batching engine pulls admissible requests from it
+  in ``pump`` and reports completions back, so the latencies in the
+  registry are engine-measured, not modeled.
+* ``drive_engine_open_loop`` — replays an open-loop trace through the
+  router while the orchestrator's autoscaler scales the service; SLO
+  attainment comes from the engine-reported end-to-end latencies.
+* ``drive_open_loop`` — the modeled-completion driver (each RUNNING
+  replica retires ``service_rate`` requests/s in the load generator).
+
+Either way, every scaling action underneath is the real machinery —
+checkpoint-clone replicate and kill+delete through node agents and CRI —
+and the orchestrator's autoscaler reconcile thread consumes the canonical
+service signals from the registry.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
-from repro_torch.scaling.autoscaler import M_KV_FREE_PAGES, M_REQUESTS
+import numpy as np
+
+from repro_torch.scaling.autoscaler import (M_COMPLETIONS, M_KV_FREE_PAGES,
+                                            M_KV_PAGES, M_LATENCY,
+                                            M_PREFIX_HIT_RATE, M_QUEUE_DEPTH,
+                                            M_REQUESTS, M_SLO_VIOLATIONS,
+                                            M_SPEC_ACCEPT_RATE,
+                                            M_UTILIZATION)
+from repro_torch.scaling.loadgen import Request
+from repro_torch.scaling.metrics import metric_key
+
+
+@dataclass
+class DriveResult:
+    served: int
+    violations: int
+    max_replicas: int
+    # rid -> prompt of every request the engine drive submitted, so a
+    # caller can serve the same requests again on another engine
+    prompts: Dict[str, np.ndarray] = field(default_factory=dict)
+
+    @property
+    def attainment(self) -> float:
+        if not self.served:
+            return float("nan")
+        return (self.served - self.violations) / self.served
 
 
 class RequestRouter:
@@ -182,3 +218,178 @@ def reset_router(service: str) -> RequestRouter:
         r = RequestRouter(service)
         _ROUTERS[service] = r
         return r
+
+
+def drive_engine_open_loop(orch, scaler, requests: List[Request], *,
+                           duration_s: float, slo_s: float,
+                           service: str = "svc", prompt_len: int = 16,
+                           slots_per_replica: int = 4,
+                           latency_window_s: float = 3.0,
+                           tokens_range: tuple = (4, 9),
+                           tick_s: float = 0.05, drain_timeout_s: float = 60.0,
+                           on_tick: Optional[Callable] = None) -> DriveResult:
+    """Replay an open-loop trace through the per-request serving path.
+
+    Arrivals become ``ServeRequest``s on the service's router; the engine
+    replicas terminate them on-device and report TTFT/TBT/e2e into
+    ``orch.metrics``.  This loop only feeds the router and publishes the
+    service-level queue/utilization gauges the autoscaler reads.
+    """
+    from repro_torch.serve.engine import ServeRequest
+
+    reg = orch.metrics
+    # pin the shared window config before engines observe into it
+    reg.histogram(M_LATENCY, window_s=latency_window_s, service=service)
+    router = get_router(service, registry=reg)
+    rng = np.random.Generator(np.random.Philox(1234))
+    pending = deque(sorted(requests, key=lambda r: r.arrival_t))
+    t0 = time.time()
+    max_replicas = 1
+    last_report = 0.0
+    deadline = None
+    prompts: Dict[str, np.ndarray] = {}
+    while True:
+        now = time.time() - t0
+        while pending and pending[0].arrival_t <= now:
+            r = pending.popleft()
+            n_tok = (r.n_tokens if getattr(r, "n_tokens", None)
+                     else int(rng.integers(*tokens_range)))
+            prompts[r.rid] = rng.integers(0, 512, prompt_len)
+            router.submit(ServeRequest(
+                rid=r.rid, prompt=prompts[r.rid],
+                max_new_tokens=n_tok, arrival_t=reg.clock(), slo_s=slo_s))
+        if not pending and router.outstanding() == 0 and now > duration_s:
+            break
+        if not pending and deadline is None and now > duration_s:
+            deadline = time.time() + drain_timeout_s
+        if deadline is not None and time.time() > deadline:
+            break                        # replicas wedged; report what we have
+        n_rep = scaler.current_replicas()
+        max_replicas = max(max_replicas, n_rep)
+        reg.gauge(M_QUEUE_DEPTH, service=service).set(router.pending_count())
+        cap = max(1, n_rep * slots_per_replica)
+        reg.gauge(M_UTILIZATION, service=service).set(
+            min(1.0, router.in_flight / cap))
+        # cache-memory occupancy: fold per-engine KV pool gauges into the
+        # service-level pressure signal (worst replica wins — that is the
+        # one about to OOM-preempt), so the autoscaler sees memory
+        # pressure alongside queue depth and tail latency
+        svc_key = metric_key(M_KV_PAGES, {"service": service})
+        kv = [v for k, v in
+              reg.gauge_values(M_KV_PAGES, service=service).items()
+              if k != svc_key]
+        if kv:
+            reg.gauge(M_KV_PAGES, service=service).set(max(kv))
+        # speculation acceptance: service-level mean of the per-engine
+        # gauges (an efficiency signal, so the mean — not the worst — is
+        # what capacity planning and the simulator's service model want);
+        # killed replicas tombstone their gauge with NaN — skip those
+        spec_key = metric_key(M_SPEC_ACCEPT_RATE, {"service": service})
+        sv = [v for k2, v in
+              reg.gauge_values(M_SPEC_ACCEPT_RATE, service=service).items()
+              if k2 != spec_key and not np.isnan(v)]
+        if sv:
+            reg.gauge(M_SPEC_ACCEPT_RATE, service=service).set(
+                sum(sv) / len(sv))
+        # prefix-cache hit rate: same NaN-skipping service mean — an
+        # efficiency signal the simulator's TTFT model consumes
+        px_key = metric_key(M_PREFIX_HIT_RATE, {"service": service})
+        pv = [v for k2, v in
+              reg.gauge_values(M_PREFIX_HIT_RATE, service=service).items()
+              if k2 != px_key and not np.isnan(v)]
+        if pv:
+            reg.gauge(M_PREFIX_HIT_RATE, service=service).set(
+                sum(pv) / len(pv))
+        if on_tick is not None and now - last_report >= 1.0:
+            last_report = now
+            on_tick(now, n_rep, router.pending_count(),
+                    reg.histogram(M_LATENCY, service=service).quantile(0.95))
+        time.sleep(tick_s)
+    router.close()
+    completed = list(router.completed.values())
+    violations = sum(1 for c in completed if c.e2e_s > slo_s)
+    return DriveResult(served=len(completed), violations=violations,
+                       max_replicas=max_replicas, prompts=prompts)
+
+
+def wait_for_service(cluster, orch, cid: str, timeout_s: float = 120.0,
+                     ) -> str:
+    """Block until the service task is deployed AND its guest finished
+    setup (first step taken); returns the node it landed on."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        node = orch._sched_tasks[cid].node_id
+        if node is not None and orch.deployments[cid].status == "running":
+            rec = cluster.nodes[node].runtime.tasks.get(cid)
+            if rec is not None and rec.guest_state.step > 0:
+                return node
+        time.sleep(0.1)
+    raise TimeoutError(f"service {cid} failed to start in {timeout_s}s")
+
+
+def drive_open_loop(orch, scaler, requests: List[Request], *,
+                    duration_s: float, service_rate: float, slo_s: float,
+                    service: str = "svc", latency_window_s: float = 3.0,
+                    tick_s: float = 0.05,
+                    on_tick: Optional[Callable] = None) -> DriveResult:
+    """Replay an open-loop trace against the live cluster in wall time.
+
+    ``on_tick(now, replicas, queue_len, p95)`` fires about once a second
+    for progress reporting.
+    """
+    reg = orch.metrics
+    lat_hist = reg.histogram(M_LATENCY, window_s=latency_window_s,
+                             service=service)
+    pending = deque(sorted(requests, key=lambda r: r.arrival_t))
+    queue: deque = deque()
+    t0 = time.time()
+    served = violations = 0
+    max_replicas = 1
+    last_report = 0.0
+    while True:
+        now = time.time() - t0
+        # drain arrivals before testing the exit so requests landing in
+        # the final tick window are still admitted and counted; arrivals
+        # enter requests_total here (completions at serve time), matching
+        # the simulator's arrival/departure split
+        while pending and pending[0].arrival_t <= now:
+            queue.append(pending.popleft())
+            reg.counter(M_REQUESTS, service=service).inc()
+        if now > duration_s and not pending and not queue:
+            break
+        n_rep = scaler.current_replicas()
+        max_replicas = max(max_replicas, n_rep)
+        capacity = max(1, int(n_rep * service_rate * tick_s))
+        used = 0
+        while queue and used < capacity:
+            r = queue.popleft()
+            used += 1
+            served += 1
+            latency = max(0.0, now - r.arrival_t)
+            lat_hist.observe(latency)
+            reg.counter(M_COMPLETIONS, service=service).inc()
+            if latency > slo_s:
+                violations += 1
+                reg.counter(M_SLO_VIOLATIONS, service=service).inc()
+        reg.gauge(M_QUEUE_DEPTH, service=service).set(len(queue))
+        reg.gauge(M_UTILIZATION, service=service).set(
+            min(1.0, used / max(capacity, 1)))
+        if on_tick is not None and now - last_report >= 1.0:
+            last_report = now
+            on_tick(now, n_rep, len(queue), lat_hist.quantile(0.95))
+        time.sleep(tick_s)
+    return DriveResult(served=served, violations=violations,
+                       max_replicas=max_replicas)
+
+
+def teardown_service(orch, scaler):
+    """Quiesce the reconcile/scheduler threads, converge to one replica
+    (real kill+delete scale-in), then remove whatever is still running."""
+    orch.stop()
+    scaler.scale_to(1)
+    for cid, dep in list(orch.deployments.items()):
+        if dep.status == "running":
+            try:
+                orch.scale_in(cid)
+            except Exception:  # noqa: BLE001 - node may be gone
+                pass
