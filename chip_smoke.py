@@ -67,7 +67,19 @@ caught):
    run (a)), the clone's node failing while it holds leases (replay,
    resubmit), teardown; every request once, sampled tokens equal one
    engine's, exact launch counts over every engine and batch task,
-   scheduler tick and decode-step seconds, threads ended and memory freed.
+   scheduler tick and decode-step seconds, threads ended and memory freed;
+17. training at full width (``phase_train``): yi-9b cut to 8 of its 48
+   layers, seq 1024, global batch 8 in 4 microbatches: (a) the fused
+   ``make_train_step`` called directly, (b) the same image as a
+   ``TrainTask`` through ``make_cluster`` -> FunkyRuntime -> FunkyCL ->
+   Monitor, (c) again, evicted at chunk 2 of 4, resumed, migrated to a
+   second slice at chunk 3; fig09's wait from an evict request to the park
+   (4 chunks against 1, at 2 layers); (d) the three smoke archs
+   checkpointed mid-accumulation and restored in a fresh runtime; (e) one
+   ``grad_step`` on the card against the CPU in f32 (2 layers, seq 256).
+   Gates: (b) equals (a) bit for bit, (c) equals (b), each (d) an
+   uninterrupted run; (e) within 1e-5 (loss) and 1e-4 (gradients); no
+   kernel launched; under 150 s and 45 GB.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -120,7 +132,8 @@ PARITY_F32_TOL = 1e-3
 PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
-          "profile_recurrentgemma", "evict_new", "engine", "cri", "orch")
+          "profile_recurrentgemma", "evict_new", "engine", "cri", "orch",
+          "train")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -1713,7 +1726,7 @@ def _cri(state, cfg, arch, device, want, root):
     rr = rt0.tasks["r0"]
     watched.append(rr)
     rs, rsd = entry(rr, "restore"), entry(rr, "restored")
-    fallbacks = [e for e in reg.snapshot()["events"]
+    fallbacks = [e for e in reg.flight_record()["events"]
                  if e[1] == "restore_fallback"]
     if rr.latest_snapshot != p1 or len(fallbacks) != 1:
         raise AssertionError(f"cri: restore used {rr.latest_snapshot} with "
@@ -2260,6 +2273,501 @@ def _orch(state, arch, device, root, m_arch):
 
 
 # ---------------------------------------------------------------------------
+# 17. training at full width
+# ---------------------------------------------------------------------------
+
+# yi-9b at full width (d_model 4096, 32/4 heads, hd 128, d_ff 11008, vocab
+# 64000, untied head) cut to ``layers`` of its 48: whole, its training
+# state (bf16 params, f32 grad_acc, f32 m and v) is about 123 GB, over the
+# card's 80; 8 layers hold 1.908 B params, 26.7 GB of state.  The image:
+# seq 1024, global batch 8 in ``chunks`` microbatches, the image's default
+# OptConfig.  (e) holds the card against the CPU on ``e_layers`` in f32;
+# fig09's wait runs at ``fig09_layers`` (chunks 1 would hold the whole
+# batch's activations at once); the smoke archs checkpoint and restore.
+TRAIN = dict(arch="yi-9b", layers=8, seq_len=1024, global_batch=8, chunks=4,
+             total_steps=6, evict_at=(2, 2), migrate_at=(2, 3),
+             fig09_layers=2, fig09_sleep_s=0.05, e_layers=2, e_seq=256,
+             smoke=("yi-9b-smoke", "mamba2-1.3b-smoke",
+                    "recurrentgemma-9b-smoke"),
+             smoke_steps=4, smoke_at=(1, 1), mem_cap=48 << 30,
+             max_phase_s=150.0, max_peak_gb=45.0)
+TRAIN_LOSS_REL_TOL = 1e-5    # (e): |loss card - loss CPU| / |loss CPU|
+TRAIN_GRAD_REL_TOL = 1e-4    # (e): max|g card - g CPU| / max|g CPU|, a leaf
+PAPER_VIRT_OVERHEAD = 0.074  # the paper's Fig 4 (Alveo U50)
+
+
+def _train_cut(base, layers, names, suffix="", **kw):
+    """Register ``base`` cut to ``layers`` (depth only; ``kw`` may change
+    the dtype) in the port's arch registry, so a ``TaskImage`` can name
+    it; its name goes on ``names``.  Returns the config."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    name = f"{base.name}-{layers}of{base.num_layers}{suffix}"
+    cfg = dataclasses.replace(base, name=name, num_layers=layers, **kw)
+    names.append(name)
+    registry.ARCHS[name] = cfg
+    return cfg
+
+
+def _tree_equal(a, b):
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _parking_task(rec, points):
+    """A TrainTask for ``rec`` that parks its driver right after the chunk
+    that leaves the guest at each (step, chunk_idx) of ``points``: it
+    clears the run gate the runtime's own park clears, so the next command
+    finds the task exactly there.  ``task.parked[point]`` is set then."""
+    import threading
+
+    from repro_torch.core import TrainTask
+
+    class Parking(TrainTask):
+        def __init__(self, image):
+            super().__init__(image)
+            self.parked = {p: threading.Event() for p in points}
+
+        def step(self, cl, gs):
+            done = super().step(cl, gs)
+            at = (gs.step, gs.user.get("chunk_idx", 0))
+            if at in self.parked:
+                rec.run_gate.clear()
+                self.parked[at].set()
+            return done
+
+    return Parking(rec.image)
+
+
+def _await_park(rec, point, timeout=600):
+    if not rec.task.parked[point].wait(timeout):
+        raise RuntimeError(f"train: {rec.cid} never reached {point}: "
+                           f"{rec.status} {rec.error!r}")
+
+
+def _await_step(rec, step, timeout=600):
+    """Polls the guest's step counter (1 ms); the clock when it reached
+    ``step``."""
+    from repro_torch.core import TaskStatus
+
+    deadline = time.time() + timeout
+    while rec.guest_state.step < step:
+        if rec.status in (TaskStatus.FAILED, TaskStatus.REMOVED) or \
+                time.time() > deadline:
+            raise RuntimeError(f"train: {rec.cid} stopped at step "
+                               f"{rec.guest_state.step}: {rec.status} "
+                               f"{rec.error!r}")
+        time.sleep(0.001)
+    return time.perf_counter()
+
+
+def _train_done(rt, cid, timeout=600):
+    from repro_torch.core import TaskStatus
+
+    rec = rt.tasks[cid]
+    if rt.wait(cid, timeout=timeout) is not TaskStatus.DONE:
+        raise RuntimeError(f"train: {cid} ended {rec.status}: {rec.error!r}")
+    if rec.guest_state.step != rec.image.total_steps:
+        raise AssertionError(f"train: {cid} ended at step "
+                             f"{rec.guest_state.step}")
+    return rec.guest_state.user["final_params"]
+
+
+def _train_flops(cfg, seq_len, tokens):
+    """Model FLOPs of a training step over ``tokens``: 6 N per token for
+    the N parameters that multiply (all but the embedding table, a
+    lookup), plus attention's 12 L H hd S per token (QK^T and PV, forward
+    and backward, over the whole S x S that the naive attention computes)."""
+    from repro_torch.models.model_zoo import analytic_param_count
+
+    n = analytic_param_count(cfg) - cfg.vocab_size * cfg.d_model
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim_ * seq_len
+    return (6 * n + attn) * tokens, n
+
+
+def phase_train(state, device="cuda", cut=None):
+    """Training at full width: yi-9b cut to ``TRAIN["layers"]`` layers,
+    (a) ``make_train_step`` called directly, (b) the same image as a
+    ``TrainTask`` through ``make_cluster`` -> FunkyRuntime -> FunkyCL ->
+    Monitor, (c) again, evicted mid-accumulation, resumed, then migrated
+    to a second slice; fig09's wait from an evict request to the park with
+    4 chunks and 1; (d) the smoke archs checkpointed at a chunk boundary
+    and restored in a fresh runtime; (e) one ``grad_step`` on the card
+    against the CPU in f32.  Gates: (b)'s final params equal (a)'s bit for
+    bit, (c)'s equal (b)'s, each of (d) an uninterrupted run's; (e) within
+    ``TRAIN_LOSS_REL_TOL`` and ``TRAIN_GRAD_REL_TOL``; no kernel launched
+    in the phase (training runs the plain forwards under autograd); the
+    phase under ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides
+    ``TRAIN`` (a rehearsal on the CPU at a small size)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+
+    tc = dict(TRAIN, **(cut or {}))
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="funky-train-")
+    names = []
+    try:
+        stats = _train(tc, device, root, names)
+    finally:
+        for n in names:
+            registry.ARCHS.pop(n, None)
+        shutil.rmtree(root, ignore_errors=True)
+        if device == "cuda":
+            _free_cuda()
+    launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+    stats["launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    if device == "cuda":
+        stats["peak_gb"] = max(stats["peak_gb_by_run"].values())
+        stats["left_allocated_bytes"] = torch.cuda.memory_allocated()
+    log(phase="train", card=state.get("card"), summary=stats)
+    state.setdefault("launches", {})["train"] = launches
+    state["train"] = stats
+    if any(launches.values()):
+        raise AssertionError(f"train: kernels launched {launches}; "
+                             "training runs no kernel")
+    if stats["phase_s"] > tc["max_phase_s"]:
+        raise AssertionError(f"train: the phase took {stats['phase_s']:.1f}"
+                             f" s, over {tc['max_phase_s']} s")
+    if stats.get("peak_gb", 0.0) > tc["max_peak_gb"]:
+        raise AssertionError(f"train: peak {stats['peak_gb']:.2f} GB, over "
+                             f"{tc['max_peak_gb']} GB")
+
+
+def _train(tc, device, root, names):
+    import os
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import TaskImage, make_cluster
+    from repro_torch.core.state import to_host
+    from repro_torch.models import build_model
+    from repro_torch.train import make_batch, make_train_state, make_train_step
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    peaks, marks = {}, {}
+
+    def peak(run):
+        """The allocator's peak since the last call, recorded for ``run``
+        (the phase's peak is the largest)."""
+        if device == "cuda":
+            sync()
+            peaks[run] = max(torch.cuda.max_memory_allocated() / 1e9,
+                             peaks.get(run, 0.0))
+            torch.cuda.reset_peak_memory_stats()
+
+    def mark(run, name):
+        """Bytes allocated now and the peak since the last mark, in GB."""
+        if device == "cuda":
+            sync()
+            marks.setdefault(run, {})[name] = (
+                torch.cuda.memory_allocated() / 1e9,
+                torch.cuda.max_memory_allocated() / 1e9)
+            peak(run)
+
+    base = get_arch(tc["arch"])
+    cfg = _train_cut(base, tc["layers"], names)
+    image = TaskImage(name="train", kind="train", arch=cfg.name,
+                      seq_len=tc["seq_len"], global_batch=tc["global_batch"],
+                      chunks=tc["chunks"], total_steps=tc["total_steps"],
+                      seed=SEED)
+    shape = ShapeConfig("train", "train", image.seq_len, image.global_batch)
+    n_steps = image.total_steps
+    tokens = image.seq_len * image.global_batch
+    flops, n_params = _train_flops(cfg, image.seq_len, tokens)
+    out = {"arch": cfg.name, "params": n_params + cfg.vocab_size * cfg.d_model,
+           "seq_len": image.seq_len, "global_batch": image.global_batch,
+           "chunks": image.chunks, "steps": n_steps,
+           "moment_dtype": image.opt.moment_dtype,
+           "model_flops_per_step": flops}
+
+    # (a) native: the fused step called directly; step 0 warms, 1.. timed
+    bundle = build_model(cfg)
+    t = time.perf_counter()
+    params, opt = make_train_state(bundle, image.opt, SEED, device=device)
+    sync()
+    out["a_init_s"] = time.perf_counter() - t
+    step = make_train_step(bundle, image.opt, num_microbatches=image.chunks)
+    losses = []
+    params, opt, m = step(params, opt, make_batch(cfg, shape, 0))
+    losses.append(float(m["loss"]))
+    sync()
+    t = time.perf_counter()
+    for s in range(1, n_steps):
+        params, opt, m = step(params, opt, make_batch(cfg, shape, s))
+    sync()
+    native_s = time.perf_counter() - t
+    losses.append(float(m["loss"]))
+    per_step = native_s / (n_steps - 1)
+    out["a"] = {"step_s": per_step, "tokens_per_s": tokens / per_step,
+                "mfu": (flops / per_step / PEAK_FLOP_S["bfloat16"]
+                        if device == "cuda" else None),
+                "loss_first_last": losses,
+                "grad_norm_last": float(m["grad_norm"])}
+    peak("a")
+    native = to_host(params)
+    if device == "cuda":
+        # where a step's time goes: one more step, traced, after (a)'s
+        # params were copied out (it changes no compared value)
+        out["a"]["trace"] = _train_trace(
+            lambda: step(params, opt, make_batch(cfg, shape, n_steps)))
+    del params, opt, m, step
+    if device == "cuda":
+        _free_cuda()
+    log(phase="train", run="a", **out["a"])
+
+    def cluster(nodes, sub, im=image):
+        return make_cluster(num_nodes=nodes, slices_per_node=1,
+                            images={im.name: im}, device=device,
+                            mem_cap_bytes=tc["mem_cap"],
+                            ckpt_root=os.path.join(root, sub))
+
+    # (b) the same image through the Funky stack, timed as fig04 times it
+    cl = cluster(1, "b")
+    rt = cl.nodes["node0"].runtime
+    rec = rt.create("b", image)
+    t = time.perf_counter()
+    rt.start("b")
+    t1 = _await_step(rec, 1)
+    t_first = t1 - t
+    t_end = _await_step(rec, n_steps)
+    funky = _train_done(rt, "b")
+    t_done = time.perf_counter()
+    funky_s = t_end - t1
+    out["b"] = {"step_s": funky_s / (n_steps - 1),
+                "setup_and_first_step_s": t_first,
+                "teardown_s": t_done - t_end,
+                "overhead": funky_s / native_s - 1,
+                "paper_overhead_alveo_u50": PAPER_VIRT_OVERHEAD,
+                "final_loss": rec.guest_state.user["final_loss"],
+                "equal_to_a": _tree_equal(funky, native)}
+    rt.delete("b")
+    del rec, rt, cl
+    peak("b")
+    log(phase="train", run="b", **out["b"])
+    if not out["b"]["equal_to_a"]:
+        raise AssertionError("train: (b)'s final params differ from (a)'s")
+    del native
+    if device == "cuda":
+        _free_cuda()
+
+    # (c) evicted mid-accumulation, resumed, then migrated to node1's slice
+    cl = cluster(2, "c")
+    rt0, rt1 = cl.nodes["node0"].runtime, cl.nodes["node1"].runtime
+    rec = rt0.create("c", image)
+    rec.task = _parking_task(rec, (tc["evict_at"], tc["migrate_at"]))
+    mark("c", "start")
+    rt0.start("c")
+    _await_park(rec, tc["evict_at"])
+    mark("c", "parked")
+    ev = rt0.evict("c")
+    mark("c", "evicted")
+    rs = rt0.resume("c")
+    mark("c", "resumed")
+    _await_park(rec, tc["migrate_at"])
+    mark("c", "parked_again")
+    t = time.perf_counter()
+    mg = rt1.resume("c", source=rt0)
+    migrate_s = time.perf_counter() - t
+    mark("c", "migrated")
+    mg_ev = [kw for _, e, kw in rec.timeline if e == "evict"][-1]
+    interrupted = _train_done(rt1, "c")
+    mark("c", "done")
+    out["c"] = {
+        "evict_at": tc["evict_at"], "migrate_at": tc["migrate_at"],
+        "evict_s": ev["total_seconds"], "evict_saved_bytes":
+            ev["saved_bytes"], "evict_n_dirty": ev["n_dirty"],
+        "resume_s": rs["total_seconds"],
+        "resume_bytes": rs["restored_bytes"],
+        "migrate_s": migrate_s, "migrate_evict_s": mg_ev["total_seconds"],
+        "migrate_saved_bytes": mg_ev["saved_bytes"],
+        "migrate_resume_s": mg["resume_seconds"],
+        "migrate_resume_bytes": mg["restored_bytes"],
+        "equal_to_b": _tree_equal(interrupted, funky)}
+    rt1.delete("c")
+    del rec, rt0, rt1, cl, interrupted
+    peak("c")
+    log(phase="train", run="c", **out["c"])
+    if not out["c"]["equal_to_b"]:
+        raise AssertionError("train: (c)'s final params differ from (b)'s")
+    del funky
+    if device == "cuda":
+        _free_cuda()
+
+    # fig09: the wait from an evict request to the park, 4 chunks and 1
+    name2 = _train_cut(base, tc["fig09_layers"], names).name
+    out["fig09"] = {"arch": name2}
+    for k in (tc["chunks"], 1):
+        im = TaskImage(name="train", kind="train", arch=name2,
+                       seq_len=image.seq_len, global_batch=image.global_batch,
+                       chunks=k, total_steps=10 ** 6, seed=SEED)
+        cl = cluster(1, f"fig09-{k}", im)
+        rt = cl.nodes["node0"].runtime
+        rec = rt.create("f", im)
+        rt.start("f")
+        _await_step(rec, 1)
+        time.sleep(tc["fig09_sleep_s"])     # land inside a dispatched step
+        t = time.perf_counter()
+        ev = rt.evict("f")
+        wait = (time.perf_counter() - t - ev["evict_seconds"]
+                + ev["sync_wait_seconds"])
+        out["fig09"][f"chunks{k}"] = {
+            "wait_s": wait, "at": (rec.guest_state.step,
+                                   rec.guest_state.user.get("chunk_idx", 0)),
+            "evict_s": ev["total_seconds"], "saved_bytes": ev["saved_bytes"]}
+        rt.kill("f")                        # the sample is taken
+        rt.delete("f")
+        del rec, rt, cl
+        if device == "cuda":
+            _free_cuda()
+    w4 = out["fig09"][f"chunks{tc['chunks']}"]["wait_s"]
+    w1 = out["fig09"]["chunks1"]["wait_s"]
+    out["fig09"]["wait_cut"] = 1 - w4 / w1
+    peak("fig09")
+    log(phase="train", run="fig09", **out["fig09"])
+
+    # (d) the smoke archs: checkpoint at a chunk boundary, restore in a
+    # fresh runtime
+    out["d"] = {}
+    for arch in tc["smoke"]:
+        im = TaskImage(name="smoke", kind="train", arch=arch,
+                       total_steps=tc["smoke_steps"], seed=SEED)
+        cl = cluster(1, f"d-{arch}", im)
+        rt = cl.nodes["node0"].runtime
+        rt.create("u", im)
+        rt.start("u")
+        want = _train_done(rt, "u")
+        rec = rt.create("x", im)
+        rec.task = _parking_task(rec, (tc["smoke_at"],))
+        rt.start("x")
+        _await_park(rec, tc["smoke_at"])
+        path = rt.checkpoint("x", keep_running=False)
+        ck = [kw for _, e, kw in rec.timeline if e == "checkpoint"][-1]
+        rt.kill("x")
+        fresh = cluster(1, f"d-{arch}-fresh", im)
+        rt2 = fresh.nodes["node0"].runtime
+        rt2.restore("y", path)
+        got = _train_done(rt2, "y")
+        out["d"][arch] = {"at": tc["smoke_at"], "bytes": ck["bytes"],
+                          "checkpoint_s": ck["total_seconds"],
+                          "restore_s": [kw for _, e, kw in
+                                        rt2.tasks["y"].timeline
+                                        if e == "restored"][-1][
+                                            "total_seconds"],
+                          "equal": _tree_equal(got, want)}
+        del rec, rt, rt2, cl, fresh
+        if not out["d"][arch]["equal"]:
+            raise AssertionError(f"train: {arch} restored mid-accumulation "
+                                 "ends with other params than an "
+                                 "uninterrupted run")
+    peak("d")
+    log(phase="train", run="d", **out["d"])
+
+    # (e) the port's grad_step on the card against the CPU, f32
+    out["e"] = _train_card_vs_cpu(tc, base, device, names)
+    peak("e")
+    log(phase="train", run="e", **out["e"])
+    out["peak_gb_by_run"] = peaks
+    out["memory_marks_gb"] = marks
+    return out
+
+
+# cuBLAS/CUTLASS GEMM kernels in a trace, by their names
+GEMM_SYMBOLS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def _train_trace(fn):
+    """One call of ``fn`` (a fused train step) under ``torch.profiler``:
+    ``_trace_summary``'s numbers plus the device ms of the GEMMs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = _trace_summary(prof, wall, 1)
+    res["gemm_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and any(g in e.key.lower() for g in GEMM_SYMBOLS)) / 1e3
+    return res
+
+
+def _train_card_vs_cpu(tc, base, device, names):
+    """One ``grad_step`` of the port's own function on the CPU and on
+    ``device`` from the same weights (drawn on the CPU from the seed,
+    copied over), f32, no TF32: the link from the card's path to the CPU
+    path the tests hold against the JAX package."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import (OptConfig, make_batch,
+                                   make_chunked_train_fns)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train (e): TF32 is enabled")
+    cfg = _train_cut(base, tc["e_layers"], names, "-f32", dtype="float32")
+    bundle = build_model(cfg)
+    grad_init, grad_step, _ = make_chunked_train_fns(bundle, OptConfig())
+    batch = make_batch(cfg, ShapeConfig("e", "train", tc["e_seq"], 1), 0)
+    t = time.perf_counter()
+    p_cpu = bundle.init(SEED, device="cpu")
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    g_cpu, l_cpu = grad_step(p_cpu, grad_init(p_cpu), batch)
+    cpu_s = time.perf_counter() - t
+    p_dev = tree_map(lambda x: x.to(device), p_cpu)
+    del p_cpu
+    t = time.perf_counter()
+    g_dev, l_dev = grad_step(p_dev, grad_init(p_dev), batch)
+    l_dev = float(l_dev)
+    dev_s = time.perf_counter() - t
+    del p_dev
+    loss_rel = abs(l_dev - float(l_cpu)) / abs(float(l_cpu))
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_dev), tree_leaves(g_cpu)):
+        err = (a.cpu() - b).abs().max().item()
+        worst = max(worst, err / max(b.abs().max().item(), 1e-30))
+    del g_dev, g_cpu
+    res = {"arch": cfg.name, "seq_len": tc["e_seq"], "batch": 1,
+           "loss_card": l_dev, "loss_cpu": float(l_cpu),
+           "loss_rel_err": loss_rel, "grad_rel_err_max": worst,
+           "init_cpu_s": init_s, "grad_step_cpu_s": cpu_s,
+           "grad_step_card_s": dev_s}
+    if loss_rel > TRAIN_LOSS_REL_TOL or worst > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train (e): card against CPU {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -2296,6 +2804,9 @@ def kernel_line(state):
     rows[2]["launches_cri"] = state["launches"]["cri"]["K2"]
     rows[2]["launches_orch"] = state["launches"]["orch"]["K2"]
     rows[4]["launches_orch"] = state["launches"]["orch"]["K3"]
+    # training runs the plain forwards under autograd: no kernel
+    for row, key in zip(rows, ("K1", "K1", "K2", "K2", "K3", "K4")):
+        row["launches_train"] = state["launches"]["train"][key]
     r = state["k1p"]["path"]
     rows.append({
         "name": "decode_attention_paged", "route": "cuda",
@@ -2307,7 +2818,8 @@ def kernel_line(state):
         "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
         "event_ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "gather_dense_ms": r["gather_dense_ms"]})
+        "library_ms": None, "gather_dense_ms": r["gather_dense_ms"],
+        "launches_train": state["launches"]["train"]["K1p"]})
     return {"kernels": rows}
 
 

@@ -22,7 +22,7 @@ from repro_torch.core.scheduler import (Action, FunkyScheduler, Policy,
 from repro_torch.core.state import (Buffer, BufferState, BufferTable,
                                     GuestState, TaskSnapshot, tree_bytes)
 from repro_torch.core.tasks import (EngineServeTask, GuestTask, ServeTask,
-                                    TaskImage)
+                                    TaskImage, TrainTask)
 from repro_torch.core.vslice import SliceAllocator, VSlice
 
 __all__ = [
@@ -36,5 +36,5 @@ __all__ = [
     "PlacementPolicy", "PlacementWeights", "Policy", "Program",
     "ProgramCache", "RequestKind", "SchedTask", "ServeTask", "ServiceGroup",
     "SliceAllocator", "TaskImage", "TaskRecord", "TaskSnapshot", "TaskState",
-    "TaskStatus", "VSlice", "make_cluster", "tree_bytes",
+    "TaskStatus", "TrainTask", "VSlice", "make_cluster", "tree_bytes",
 ]

@@ -8,15 +8,18 @@ driver thread calls ``step()`` in a loop; all orchestration
 (evict/resume/migrate/checkpoint) lands between steps plus a monitor-level
 SYNC — the paper's request-boundary preemption model.
 
-Ported: ``ServeTask`` (one fixed batch over reserved caches) and
-``EngineServeTask`` (a continuous-batching engine replica fed by the
-service's ``RequestRouter``); training comes with its slice.
+``TrainTask`` uses the *chunked* train functions (paper §3.4 data
+splitting): one logical optimizer step = K microbatch EXECUTE requests + one
+apply EXECUTE, so preemption waits at most one microbatch (Fig 9).
+``ServeTask`` decodes one fixed batch over reserved caches;
+``EngineServeTask`` is a continuous-batching engine replica fed by the
+service's ``RequestRouter``.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -25,7 +28,8 @@ from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core.guest import FunkyCL
 from repro_torch.core.programs import Program
 from repro_torch.core.state import GuestState
-from repro_torch.train import make_batch
+from repro_torch.train import (OptConfig, init_opt_state, make_batch,
+                               make_chunked_train_fns, make_train_state)
 
 
 @dataclass
@@ -33,10 +37,12 @@ class TaskImage:
     """The "OCI image" of a task: guest binary + config."""
 
     name: str
-    kind: str                       # serve | engine-serve (train: later)
+    kind: str                       # train | serve | engine-serve
     arch: str = "yi-9b-smoke"
+    seq_len: int = 32               # train: tokens per sequence
     global_batch: int = 4           # engine-serve: decode lanes
     total_steps: int = 8
+    chunks: int = 2                 # train: microbatches per step
     tokens_per_step: int = 4        # serve: decode tokens per step() call
     prompt_len: int = 16
     seed: int = 0
@@ -48,13 +54,17 @@ class TaskImage:
     prompt_buckets: tuple = ()      # e.g. (128, 512); empty = (prompt_len,)
     fuse_steps: int = 1             # greedy steps per decode EXECUTE
     async_depth: int = 0            # decode EXECUTEs submitted ahead
+    opt: OptConfig = field(default_factory=lambda: OptConfig(
+        warmup_steps=2, decay_steps=100))
 
     def instantiate(self) -> "GuestTask":
+        if self.kind == "train":
+            return TrainTask(self)
         if self.kind == "serve":
             return ServeTask(self)
         if self.kind == "engine-serve":
             return EngineServeTask(self)
-        raise NotImplementedError(f"task kind {self.kind!r} is not ported yet")
+        raise ValueError(self.kind)
 
 
 class GuestTask:
@@ -91,6 +101,131 @@ class GuestTask:
         """Program ("bitstream") ids this guest compiles; empty means
         unknown (e.g. before setup)."""
         return ()
+
+
+class TrainTask(GuestTask):
+    """Chunked training: each ``step()`` submits one microbatch EXECUTE
+    (``grad_step``), and the last chunk of a logical step also ``apply``.
+
+    Programs: ``init_state`` (weights from ``image.seed`` and zero moments
+    on the device), ``grad_init`` (a zero accumulator), ``grad_step`` (adds
+    one microbatch's gradients into ``grad_acc`` in place) and ``apply``
+    (AdamW on the averaged gradient, ``params`` and ``opt_state`` updated
+    in place); their EXECUTEs donate the buffers they update.  Buffers:
+    ``params``, ``opt_state``, ``grad_acc``, ``batch``, ``loss``,
+    ``grad_norm``."""
+
+    PROGRAMS = ("init_state", "grad_init", "grad_step", "apply")
+
+    def __init__(self, image: TaskImage):
+        self.image = image
+        self.cfg = get_arch(image.arch)
+        self.shape = ShapeConfig("task", "train", image.seq_len,
+                                 image.global_batch)
+
+    def program_ids(self) -> tuple:
+        return self.PROGRAMS
+
+    def _build_programs(self, device: torch.device):
+        from repro_torch.models import build_model
+
+        bundle = build_model(self.cfg)
+        oc = self.image.opt
+        grad_init, grad_step, apply_step = make_chunked_train_fns(bundle, oc)
+
+        def init_state(seed):
+            return make_train_state(bundle, oc, seed, device=device)
+
+        def apply_fn(params, opt_state, grad_acc):
+            p, o, stats = apply_step(params, opt_state, grad_acc,
+                                     self.image.chunks)
+            return p, o, stats["grad_norm"]
+
+        self._bundle = bundle
+        self._grad_init = grad_init
+        self._progs = {
+            "init_state": Program("init_state", init_state),
+            "grad_init": Program("grad_init", grad_init),
+            "grad_step": Program("grad_step", grad_step,
+                                 inplace_argnums=(1,)),
+            "apply": Program("apply", apply_fn, inplace_argnums=(0, 1)),
+        }
+
+    def _abstracts(self):
+        """Shapes of params, opt_state, grad_acc and one microbatch, as
+        meta tensors (nothing allocated)."""
+        meta = torch.device("meta")
+        params_abs = self._bundle.init(0, device=meta)
+        opt_abs = init_opt_state(self.image.opt, params_abs)
+        grad_abs = self._grad_init(params_abs)
+        mb = (self.image.global_batch // self.image.chunks,
+              self.image.seq_len)
+        mb_abs = {k: torch.empty(mb, dtype=torch.int32, device=meta)
+                  for k in ("tokens", "targets")}
+        return params_abs, opt_abs, grad_abs, mb_abs
+
+    def setup(self, cl: FunkyCL, gs: GuestState, restore: bool) -> None:
+        self._build_programs(cl.device)
+        params_abs, opt_abs, grad_abs, mb_abs = self._abstracts()
+        cl.clCreateProgramWithBinary(self._progs["init_state"], (0,))
+        cl.clCreateProgramWithBinary(self._progs["grad_init"], (params_abs,))
+        cl.clCreateProgramWithBinary(
+            self._progs["grad_step"], (params_abs, grad_abs, mb_abs),
+            donate_argnums=(1,))
+        cl.clCreateProgramWithBinary(
+            self._progs["apply"], (params_abs, opt_abs, grad_abs),
+            donate_argnums=(0, 1))
+        if not restore:
+            meta = torch.device("meta")
+            scalar = torch.empty((), dtype=torch.float32, device=meta)
+            cl.clCreateBuffer("params", params_abs)
+            cl.clCreateBuffer("opt_state", opt_abs)
+            cl.clCreateBuffer("grad_acc", grad_abs)
+            cl.clCreateBuffer("batch", mb_abs)
+            cl.clCreateBuffer("loss", scalar)
+            cl.clCreateBuffer("grad_norm", scalar)
+            cl.clEnqueueKernel("init_state", (), ("params", "opt_state"),
+                               const_args=(self.image.seed,))
+            cl.clFinish()
+
+    def step(self, cl: FunkyCL, gs: GuestState) -> bool:
+        """One *chunk* of a logical optimizer step (paper §3.4 splitting).
+
+        Each driver-loop iteration submits exactly one microbatch EXECUTE,
+        so preemption waits at most one chunk — and a task evicted mid-
+        accumulation resumes bit-exactly: ``chunk_idx`` lives in the guest
+        (VM) state and ``grad_acc`` is a DIRTY tracked buffer."""
+        k = self.image.chunks
+        ci = gs.user.get("chunk_idx", 0)
+        if ci == 0:
+            cl.clEnqueueKernel("grad_init", ("params",), ("grad_acc",))
+        full = make_batch(self.cfg, self.shape, gs.step,
+                          batch_override=self.image.global_batch)
+        mb_size = self.image.global_batch // k
+        cl.write_buffer("batch", {key: x[ci * mb_size:(ci + 1) * mb_size]
+                                  for key, x in full.items()})
+        cl.clEnqueueKernel("grad_step", ("params", "grad_acc", "batch"),
+                           ("grad_acc", "loss"), donate=True)
+        if ci + 1 < k:
+            cl.clFinish()
+            gs.user["chunk_idx"] = ci + 1
+            return False
+        cl.clEnqueueKernel("apply", ("params", "opt_state", "grad_acc"),
+                           ("params", "opt_state", "grad_norm"), donate=True)
+        cl.clFinish()
+        gs.user["chunk_idx"] = 0
+        gs.step += 1
+        gs.data_position = gs.step
+        return gs.step >= self.image.total_steps
+
+    def teardown(self, cl: FunkyCL, gs: GuestState) -> None:
+        gs.user["final_loss"] = float(cl.read_buffer("loss"))
+        # read results out before releasing: the monitor zeroes device
+        # memory on vfpga_exit (paper §3.4 isolation).  Host-side only;
+        # never in a manifest (checkpoints only happen while RUNNING).
+        gs.user["final_params"] = cl.read_buffer("params")
+        for pid in self.PROGRAMS:
+            cl.clReleaseProgram(pid)
 
 
 class ServeTask(GuestTask):

@@ -13,6 +13,9 @@ at slot ``pos % cap``) where the reference built a new array with
 ``dynamic_update_slice``; the slot and the ``kv_pos`` bookkeeping are the
 same.  Callers that need the old cache intact pass a copy.
 
+``gqa_fwd`` is the training forward: full-sequence causal attention on a
+plain version, which autograd differentiates.
+
 ``gqa_decode_paged`` is the serving engine's decode over the paged pool
 (``serve/kvcache.py``): the whole lane batch at once, each lane at its own
 position, where the reference vmaps a gather + dense decode per lane.
@@ -161,6 +164,28 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = rope_fwd(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = rope_fwd(k, positions, cfg.rope_theta, cfg.rope_pct)
     return q, k, v
+
+
+def gqa_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+            window: int | None = None, causal: bool = True,
+            impl: str = "naive", positions=None,
+            chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence attention for training. x: (B, S, D), positions
+    ``0..S-1`` unless given.  ``impl`` is a plain version ("naive" or
+    "blockwise"), differentiable by autograd; the kernels have no
+    backward, so K2 is refused here."""
+    if impl not in ("naive", "blockwise"):
+        raise ValueError(f"gqa_fwd: impl {impl!r} has no backward "
+                         "(training runs the plain versions)")
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    w = cfg.sliding_window if window is None else window
+    out = sdpa(q, k, v, impl=impl, causal=causal, window=w,
+               q_pos=positions, kv_pos=positions, chunk=chunk,
+               softcap=cfg.attn_logit_softcap)
+    return _out_proj(out, p["wo"])
 
 
 def _ring_cache_from_prefill(entries: dict, S: int, cap: int) -> dict:

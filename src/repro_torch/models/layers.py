@@ -1,5 +1,6 @@
-"""Common layers: norms, rotary embeddings, the MLPs, embeddings, and the
-causal depthwise convolution of the SSM and RG-LRU blocks.
+"""Common layers: norms, rotary embeddings, the MLPs, embeddings, the
+training loss, and the causal depthwise convolution of the SSM and RG-LRU
+blocks.
 
 Functional, like the reference: ``init_*`` builds a dict of tensors on an
 explicit device from an explicit ``torch.Generator``; ``*_fwd`` applies it.
@@ -145,6 +146,25 @@ def lm_head_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy with f32 accumulation; ``mask`` (0/1 per
+    token) averages over the kept tokens only.  The gold logit is a
+    ``gather`` of the same f32 value the reference takes as a masked sum
+    over the vocab axis (a sum of one value and zeros), without a
+    (B, S, V) mask; its backward writes one value per row, so it sums in
+    no order."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = (logits - m).float()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = shifted.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin).
 
-Serving half of the reference's ``models/rglru.py``.  Per channel:
+The reference's ``models/rglru.py`` (training, prefill, decode).  Per
+channel:
 
     r_t = sigmoid(u_t W_a + b_a)             # recurrence gate
     i_t = sigmoid(u_t W_x + b_x)             # input gate
@@ -8,6 +9,7 @@ Serving half of the reference's ``models/rglru.py``.  Per channel:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 Gates run in float32 with block-diagonal weights (``_N_BLOCKS`` blocks).
+Training (``rec_block_fwd``) runs the plain scan under autograd.
 Prefill's recurrence is the hand-written CUDA kernel K4
 (``repro_torch.kernels.rglru_scan``) on the kernel path and the plain scan
 otherwise; on a CPU tensor K4's wrapper runs the plain version too.
@@ -98,6 +100,16 @@ def init_rec_block(cfg: ModelConfig, device, gen, count: int = 0) -> dict:
         "lambda_p": full(0.5),
         "w_out": normal((W, D), sb, dt, device, gen, count),
     }
+
+
+def rec_block_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Training forward, x: (B, S, D) -> (B, S, D), on the plain scan
+    ``rglru_ref`` (K4 has no backward)."""
+    u = x @ p["w_in"]
+    u, _ = causal_conv1d(u, p["conv_w"])
+    h, _ = rglru_ref(p, u)
+    gate = gelu(x @ p["w_gate"])
+    return (h * gate) @ p["w_out"]
 
 
 def rec_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, *,

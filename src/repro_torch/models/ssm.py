@@ -1,7 +1,9 @@
 """Mamba2 block: SSD (state-space duality) with the chunked algorithm.
 
-Serving half of the reference's ``models/ssm.py``: prefill runs the whole
-prompt through the chunked scan, decode is a single-token step.  Prefill's
+The reference's ``models/ssm.py``: training (``ssm_block_fwd``) and
+prefill run the whole sequence through the chunked scan, decode is a
+single-token step.  Training runs the plain ``ssd_chunked`` under
+autograd.  Prefill's
 scan is the hand-written CUDA kernel K3 (``repro_torch.kernels.ssd_scan``)
 on the kernel path and the plain ``ssd_chunked`` otherwise; on a CPU tensor
 K3's wrapper runs the plain version too.
@@ -106,6 +108,20 @@ def _ssm_proj_conv(cfg, p, x, conv_states=None):
     xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     return z, xs, Bm, Cm, dt, conv_states
+
+
+def ssm_block_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Full-sequence Mamba2 block for training, x: (B, S, D) -> (B, S, D),
+    on the plain ``ssd_chunked`` (K3 has no backward)."""
+    di, H, N, Pd = ssm_dims(cfg)
+    B, S, _ = x.shape
+    z, xs, Bm, Cm, dt, _ = _ssm_proj_conv(cfg, p, x)
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(B, S, H, Pd)
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm.chunk_size)
+    y = y + xh * p["D_skip"][:, None].to(y.dtype)
+    y = _gated_norm(y.reshape(B, S, di), z, p["norm_scale"])
+    return y @ p["out_proj"]
 
 
 def ssm_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, *,

@@ -12,8 +12,11 @@ parameters and caches stacked along a leading ``count`` axis:
 A Python loop over that axis replaces ``lax.scan``; per-layer parameters
 and caches are views into the stacked tensors, so decode's in-place cache
 writes (attention ring, SSM state, RG-LRU state, conv windows) land in the
-stacked cache.  ``lm_decode_paged`` is the serving engine's decode over
-the paged pool (dense plans), one step for every lane at its own position.
+stacked cache.  Training (``mode="train"``, ``lm_loss``) runs the plain
+forwards under autograd, each repetition optionally rematerialised in the
+backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant).
+``lm_decode_paged`` is the serving engine's decode over the paged pool
+(dense plans), one step for every lane at its own position.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssm
-from repro_torch.models.layers import (embed_fwd, init_embed, init_mlp,
-                                       init_norm, lm_head_fwd, mlp_fwd,
-                                       norm_fwd)
-from repro_torch.tree import tree_map
+from repro_torch.models.layers import (cross_entropy, embed_fwd, init_embed,
+                                       init_mlp, init_norm, lm_head_fwd,
+                                       mlp_fwd, norm_fwd)
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -74,6 +77,15 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, one ``unbind`` per leaf (its
+    backward stacks the layers' gradients once, where ``n`` indexings
+    would each add a full-size zero-padded gradient)."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
@@ -99,17 +111,23 @@ def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
 
 
 def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
-                *, mode: str, cache, pos, prefill_impl: str,
-                decode_impl: str, prefill_chunk: int, cache_margin: int):
-    """mode: prefill | decode. Returns (x, cache).  ``prefill_impl``
-    "kernel" puts every mixer's prefill on its CUDA kernel (K2, K3, K4);
-    ``decode_impl`` "kernel" puts attention decode on K1 (the SSM and
-    RG-LRU steps are plain tensor code)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r} is not ported yet")
+                *, mode: str, cache, pos, prefill_impl: str = "kernel",
+                decode_impl: str = "kernel", prefill_chunk: int = 1024,
+                cache_margin: int = 0):
+    """mode: train | prefill | decode. Returns (x, cache); training has no
+    cache (None).  ``prefill_impl`` "kernel" puts every mixer's prefill on
+    its CUDA kernel (K2, K3, K4); ``decode_impl`` "kernel" puts attention
+    decode on K1 (the SSM and RG-LRU steps are plain tensor code).
+    Training runs the plain versions only (naive attention, the plain SSD
+    and RG-LRU scans): no kernel has a backward."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     h = norm_fwd(cfg, p["norm1"], x)
+    new_cache = None
     if spec.mixer == "attn":
-        if mode == "prefill":
+        if mode == "train":
+            mix = attn.gqa_fwd(cfg, p["attn"], h, window=spec.window)
+        elif mode == "prefill":
             mix, new_cache = attn.gqa_prefill(
                 cfg, p["attn"], h, window=spec.window, impl=prefill_impl,
                 chunk=prefill_chunk, margin=cache_margin)
@@ -118,13 +136,17 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
                 cfg, p["attn"], h, pos, cache, window=spec.window,
                 impl=decode_impl)
     elif spec.mixer == "rec":
-        if mode == "prefill":
+        if mode == "train":
+            mix = rglru.rec_block_fwd(cfg, p["rec"], h)
+        elif mode == "prefill":
             mix, new_cache = rglru.rec_block_prefill(cfg, p["rec"], h,
                                                      impl=prefill_impl)
         else:
             mix, new_cache = rglru.rec_block_step(cfg, p["rec"], h, cache)
     elif spec.mixer == "ssm":
-        if mode == "prefill":
+        if mode == "train":
+            mix = ssm.ssm_block_fwd(cfg, p["ssm"], h)
+        elif mode == "prefill":
             mix, new_cache = ssm.ssm_block_prefill(cfg, p["ssm"], h,
                                                    impl=prefill_impl)
         else:
@@ -158,9 +180,35 @@ def init_segment(cfg: ModelConfig, seg: Segment, device, gen) -> dict:
                             for spec in seg.blocks)}
 
 
+def _maybe_remat(fn, remat: str):
+    """``remat`` of the reference: "none" keeps every activation for the
+    backward, "full" keeps only each repetition's inputs and recomputes
+    the rest (non-reentrant ``torch.utils.checkpoint``)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        from torch.utils.checkpoint import checkpoint
+
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        raise NotImplementedError("remat 'dots' is not ported yet")
+    raise ValueError(f"unknown remat {remat!r}")
+
+
 def segment_apply(cfg: ModelConfig, p_stacked: dict, seg: Segment,
                   x: torch.Tensor, *, mode: str, caches=None, pos=None,
-                  **kw):
+                  remat: str = "none", **kw):
+    if mode == "train":
+        def body(x, rep_p):
+            for b, spec in enumerate(seg.blocks):
+                x, _ = block_apply(cfg, rep_p["blocks"][b], spec, x,
+                                   mode=mode, cache=None, pos=None, **kw)
+            return x
+
+        body = _maybe_remat(body, remat)
+        for rep_p in _unstack(p_stacked, seg.count):
+            x = body(x, rep_p)
+        return x, None
     if mode == "prefill":
         per_block = [[] for _ in seg.blocks]
         for i in range(seg.count):
@@ -206,14 +254,30 @@ def init_lm(cfg: ModelConfig, seed: int, device="cuda") -> dict:
 
 def lm_backbone(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
                 mode: str, caches=None, pos=None, **kw):
-    """Run all segments over input embeddings h. Returns (h, caches)."""
+    """Run all segments over input embeddings h. Returns (h, caches);
+    training returns no caches (None)."""
     caches_out = []
     for i, seg in enumerate(plan_segments(cfg)):
         seg_cache = caches[i] if caches is not None else None
         h, c = segment_apply(cfg, params["segments"][i], seg, h, mode=mode,
                              caches=seg_cache, pos=pos, **kw)
         caches_out.append(c)
-    return norm_fwd(cfg, params["final_norm"], h), tuple(caches_out)
+    h = norm_fwd(cfg, params["final_norm"], h)
+    return h, (None if mode == "train" else tuple(caches_out))
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: str = "none"):
+    """batch: tokens (B, S) int, targets (B, S) int, optional loss_mask.
+    Returns (loss, {"loss", "aux_loss"}); the ported families have no
+    auxiliary loss (zero)."""
+    h = embed_fwd(cfg, params["embed"], batch["tokens"])
+    h, _ = lm_backbone(cfg, params, h, mode="train", remat=remat)
+    logits = lm_head_fwd(cfg, params["embed"], h)
+    loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,

@@ -405,10 +405,8 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
     def snapshot(self) -> dict:
-        """One schema for live and simulated runs (ts = injected clock),
-        plus the event ring."""
-        with self._events_lock:
-            events = list(self._events)
+        """One schema for live and simulated runs (ts = injected clock).
+        The event ring is ``flight_record()``'s."""
         with self._lock:
             return {
                 "ts": self.clock(),
@@ -417,5 +415,4 @@ class MetricsRegistry:
                 "histograms": {k: h.summary()
                                for k, h in self._histograms.items()},
                 "series": {k: s.points() for k, s in self._series.items()},
-                "events": events,
             }

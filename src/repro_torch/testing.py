@@ -34,6 +34,24 @@ def params_from_jax(np_tree: Any) -> Any:
     return tree_map(_tensor, np_tree)
 
 
+def opt_state_from_jax(np_state: dict) -> dict:
+    """The reference's AdamW state (numpy leaves) as the port's: ``m`` and
+    ``v`` beside the parameters in their moment dtype (float32, bfloat16
+    or int8), the int32 scalar ``count``, and for int8 moments the f32
+    ``m_scale`` and ``v_scale`` rows.  Both packages then start from the
+    same state."""
+    keys = {"m", "v", "count"}
+    if "m_scale" in np_state or "v_scale" in np_state:
+        keys |= {"m_scale", "v_scale"}
+    if set(np_state) != keys:
+        raise ValueError(f"optimizer state keys {sorted(np_state)}, "
+                         f"expected {sorted(keys)}")
+    out = {k: tree_map(_tensor, np_state[k]) for k in keys}
+    if out["count"].dtype != torch.int32 or out["count"].ndim:
+        raise ValueError("count must be an int32 scalar")
+    return out
+
+
 # the reference's caches convert the same way: k/v stay in the config's
 # dtype, SSM/RG-LRU states in float32, ``kv_pos`` in int32
 caches_from_jax = params_from_jax

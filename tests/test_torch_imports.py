@@ -1,9 +1,10 @@
 """Import hygiene and device rules of the PyTorch port.
 
 ``repro_torch`` imports with ``jax`` blocked and loads no module of the
-reference package; ``chip_smoke.py`` imports neither.  Nothing picks the
-CPU on its own: a CUDA request on a host without a card raises, and a
-missing ``nvcc`` is an error, never a fallback.
+reference package; ``chip_smoke.py`` and ``train_memory.py`` import
+neither.  Nothing picks the CPU on its own: a CUDA request on a host
+without a card raises, and a missing ``nvcc`` is an error, never a
+fallback.
 """
 
 import ast
@@ -29,8 +30,13 @@ for n in names:
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "jax" not in sys.modules or sys.modules["jax"] is None
-print(len(names))
+print(" ".join(names))
 """
+
+# modules that must be among the walked ones (the training slice's too)
+_EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
+             "repro_torch.train.train_step", "repro_torch.core.tasks",
+             "repro_torch.models.transformer", "repro_torch.testing"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -38,7 +44,9 @@ def test_port_imports_without_jax_or_the_reference():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30        # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 30                     # every module was imported
+    assert _EXPECTED <= names, _EXPECTED - names
 
 
 def _imported_modules(path: Path) -> set:
@@ -53,7 +61,7 @@ def _imported_modules(path: Path) -> set:
 
 def test_port_sources_and_chip_smoke_import_nothing_of_the_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "train_memory.py"]
     for f in files:
         for m in _imported_modules(f):
             top = m.split(".")[0]
@@ -91,6 +99,11 @@ def test_cuda_requests_raise_without_a_card(no_card):
         SliceAllocator("n0", 1)
     with pytest.raises(RuntimeError):
         build_model(get_arch("yi-9b-smoke")).init(0)
+    from repro_torch.train import OptConfig, make_train_state
+
+    with pytest.raises(RuntimeError):           # training too
+        make_train_state(build_model(get_arch("yi-9b-smoke")), OptConfig(),
+                         0)
 
 
 def test_explicit_cpu_and_meta_devices():

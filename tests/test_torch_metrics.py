@@ -239,9 +239,7 @@ def test_snapshot_schema():
     reg.histogram("request_latency_seconds", service="svc").observe(0.1)
     reg.series("replicas_ts", service="svc").record(1)
     snap = reg.snapshot()
-    assert set(snap) == {"ts", "counters", "gauges", "histograms", "series",
-                         "events"}
-    assert snap["events"] == []
+    assert set(snap) == {"ts", "counters", "gauges", "histograms", "series"}
     assert snap["counters"]["requests_total{service=svc}"] == 1.0
     assert snap["gauges"]["queue_depth{service=svc}"] == 3.0
     hist = snap["histograms"]["request_latency_seconds{service=svc}"]

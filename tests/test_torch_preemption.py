@@ -335,7 +335,7 @@ def test_checkpoint_crash_replay_restore(ref, tmp_path, schedule):
     assert rec.latest_snapshot == p1
     _finish(router, [(a1, "e")])
     _assert_conserved(router, ref)
-    kinds = [e[1] for e in reg.snapshot()["events"]]
+    kinds = [e[1] for e in reg.flight_record()["events"]]
     assert ("restore_fallback" in kinds) == (schedule == 4)
     assert "router_replay" in kinds
 

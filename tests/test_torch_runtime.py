@@ -131,8 +131,17 @@ def test_kill_releases_the_slice():
 
 
 def test_unported_task_kinds_raise():
-    with pytest.raises(NotImplementedError):
-        TaskImage(name="x", kind="train").instantiate()
+    """Every kind of the reference is ported: ``train`` gives a
+    ``TrainTask``, and a kind that no package knows raises ``ValueError``,
+    as in the reference."""
+    from repro_torch.core import TrainTask
+
+    task = TaskImage(name="x", kind="train").instantiate()
+    assert isinstance(task, TrainTask)
+    assert task.program_ids() == ("init_state", "grad_init", "grad_step",
+                                  "apply")
+    with pytest.raises(ValueError):
+        TaskImage(name="x", kind="no-such-kind").instantiate()
 
 
 def test_engine_serve_instantiates_an_engine_task():
