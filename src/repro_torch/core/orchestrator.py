@@ -12,8 +12,9 @@ The orchestrator never talks to monitors directly: every operation flows
 orchestrator -> node agent -> CRI -> container engine -> OCI runtime, as in
 the paper's Figure 1.  All services publish telemetry into a
 ``scaling.metrics`` registry — the same schema the trace simulator emits
-under its virtual clock.  Control-plane tracing (``tracer=``) needs the
-reference's tracer, which is not ported yet.
+under its virtual clock.  With a tracer (``tracer=``) the control actions
+are the spans of one long-lived ``cluster`` trace, so an exported run is a
+loadable cluster timeline.
 """
 
 from __future__ import annotations
@@ -60,10 +61,18 @@ class Orchestrator:
                  placement: Optional[PlacementPolicy] = None,
                  straggler_interval: Optional[float] = None,
                  tracer=None, retry: Optional[RetryPolicy] = None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "orchestrator tracing (tracer=) is not ported yet")
         self.agents = agents
+        # orchestration-plane tracing: one long-lived "cluster" trace whose
+        # spans are the control actions (deploy/evict/resume/migrate,
+        # scale-in drains, failure restores, straggler migrations)
+        self.tracer = tracer
+        self._cluster_trace = (tracer.start_trace("cluster",
+                                                  trace_id="cluster")
+                               if tracer is not None else None)
+        # straggler migrations in flight: cid -> the pre-migration trace,
+        # linked (relation "migrates") from the post-migration trace when
+        # the task lands again
+        self._pending_migrate_links: Dict[str, object] = {}
         # bounded retry-with-backoff for orchestrator actions (deploy /
         # evict / resume / migrate / restore): a transient agent fault
         # costs a backoff, exhaustion produces a structured failure event
@@ -140,15 +149,21 @@ class Orchestrator:
                 st.meta["programs"] = progs
             self._sched_tasks[new_cid] = st
             self.scheduler.run_queue.append(st)
+        sp = self._span("orch.replicate", cid=cid, new_cid=new_cid,
+                        node=target_node)
         try:
             self.agents[target_node].replicate_in(new_cid, cid, src,
                                                   image_ref)
-        except BaseException:
+        except BaseException as e:
             with self._lock:        # roll the reservation back
                 self.scheduler.task_done(new_cid)
                 self._sched_tasks.pop(new_cid, None)
                 self.deployments.pop(new_cid, None)
+            if sp is not None:
+                sp.annotate(outcome="error", error=repr(e)).end()
             raise
+        if sp is not None:
+            sp.end()
         self._log("replicate", cid=cid, new_cid=new_cid, node=target_node)
         return new_cid
 
@@ -169,6 +184,7 @@ class Orchestrator:
         base image's compiled programs) and failure-domain anti-affinity
         against the group's running members.  Returns None when no node has
         a free slice."""
+        sp = self._span("orch.place", cid=cid)
         with self._lock:
             dep = self.deployments[cid]
             gid = self._ensure_group(cid)
@@ -176,8 +192,11 @@ class Orchestrator:
                 tid=f"{cid}::place", priority=dep.priority, group=gid,
                 meta={"programs": self._image_programs.get(dep.image_ref,
                                                            ())})
-            return self.placement.select_node(
+            target = self.placement.select_node(
                 probe, self, {}, running=self.scheduler.run_queue)
+        if sp is not None:
+            sp.annotate(node=target).end()
+        return target
 
     def scale_vertical(self, cid: str, vfpga_num: int):
         node = self._sched_tasks[cid].node_id
@@ -189,15 +208,21 @@ class Orchestrator:
         admissions, let in-flight lanes finish at their request boundary),
         then kill + delete through the agent.  Draining happens outside the
         lock — it blocks for up to ``drain_s``."""
+        sp = self._span("orch.scale_in", cid=cid)
         if drain_s > 0:
             node = self._sched_tasks[cid].node_id
             if node is not None and node in self.agents:
+                dsp = (sp.child("orch.drain", cid=cid, node=node)
+                       if sp is not None else None)
                 try:
                     stats = self.agents[node].drain(cid, timeout_s=drain_s)
                     self._log("drain", cid=cid, node=node, **stats)
                 except Exception as e:  # noqa: BLE001 - node may be gone
                     self._log("drain_error", cid=cid, node=node,
                               error=repr(e))
+                finally:
+                    if dsp is not None:
+                        dsp.end()
         with self._lock:
             st = self._sched_tasks[cid]
             node = st.node_id
@@ -212,6 +237,8 @@ class Orchestrator:
             dep.status = "removed"
             dep.end_time = time.time()
             self._log("scale_in", cid=cid, node=node)
+        if sp is not None:
+            sp.annotate(node=node).end()
 
     # ------------------------------------------------------------------
     # Workload-scaling service: autoscaler reconcile loop (paper §3.5)
@@ -416,15 +443,28 @@ class Orchestrator:
                     a.tid, dep.image_ref, a.src_node)
                 dep.status = "running"
 
+        sp = self._span(f"orch.{a.kind}", cid=a.tid, node=a.node)
         try:
             retry_call(dispatch, self.retry,
                        on_retry=lambda n, b, e: self._on_action_retry(
-                           a.kind, a.tid, n, b, e))
+                           a.kind, a.tid, n, b, e, sp))
             self._log(a.kind, cid=a.tid, node=a.node)
+            if a.kind in ("migrate", "resume"):
+                # the straggler landed again: link its post-migration trace
+                # back to the pre-eviction one (relation "migrates")
+                pre = self._pending_migrate_links.pop(a.tid, None)
+                if pre is not None and self.tracer is not None:
+                    post = self.tracer.event_span(
+                        "orch.migrate_in", cid=a.tid, node=a.node,
+                        src_node=getattr(a, "src_node", None))
+                    post.link(pre, relation="migrates")
+                    post.finish()
         except TransientFault as e:
             # attempts exhausted: structured failure + requeue — the
             # scheduling loop must survive an unlucky streak
             self._requeue(st, a, "action_failed", error=repr(e))
+            if sp is not None:
+                sp.annotate(outcome="action_failed", error=repr(e))
         except NodeFailed:
             # node died under us: requeue the task
             st.state = TaskState.WAITING
@@ -432,8 +472,19 @@ class Orchestrator:
             self.scheduler.task_done(a.tid)
             self.scheduler.submit(st)
             self._log("node_failed_during", action=a.kind, cid=a.tid)
+            if sp is not None:
+                sp.annotate(outcome="node_failed")
         except NoSliceAvailable:
             self._requeue(st, a, "no_slice_retry")
+            if sp is not None:
+                sp.annotate(outcome="no_slice_retry")
+        except BaseException as e:
+            if sp is not None:
+                sp.annotate(outcome="error", error=repr(e))
+            raise
+        finally:
+            if sp is not None:
+                sp.end()
 
     def _requeue(self, st: SchedTask, a: Action, event: str, **kw):
         if a.kind in ("resume", "migrate"):
@@ -446,11 +497,14 @@ class Orchestrator:
         self._log(event, action=a.kind, cid=a.tid, **kw)
 
     def _on_action_retry(self, action: str, cid: str, attempt: int,
-                         backoff_s: float, exc: BaseException):
+                         backoff_s: float, exc: BaseException, sp=None):
         self.metrics.counter("orchestrator_action_retries_total",
                              action=action).inc()
         self._log("action_retry", action=action, cid=cid,
                   attempt=attempt, backoff_s=backoff_s, error=repr(exc))
+        if sp is not None:
+            sp.child("orch.retry", attempt=attempt, backoff_s=backoff_s,
+                     error=repr(exc)).end()
 
     # ------------------------------------------------------------------
     # Background services
@@ -544,11 +598,15 @@ class Orchestrator:
             if not any(self.free_slices(n) > 0 for n in self.nodes()
                        if n != st.node_id):
                 continue
+            ssp = self._span("orch.straggler_migrate", cid=d.cid,
+                             node=st.node_id)
             try:
                 self.agents[st.node_id].evict(d.cid)
             except Exception as e:  # noqa: BLE001 - task may just finish
                 self._log("straggler_evict_error", cid=d.cid,
                           error=repr(e))
+                if ssp is not None:
+                    ssp.annotate(outcome="evict_error").end()
                 continue
             with self._lock:
                 self.scheduler.task_done(d.cid)
@@ -561,6 +619,14 @@ class Orchestrator:
                 self.migration.reset(d.cid)
             self._log("straggler_evicted", cid=d.cid, rate=d.rate,
                       median=d.median)
+            if ssp is not None:
+                ssp.annotate(outcome="evicted", rate=d.rate).end()
+            if self.tracer is not None:
+                pre = self.tracer.event_span(
+                    "orch.migrate_out", cid=d.cid, node=st.node_id,
+                    rate=d.rate, median=d.median)
+                pre.finish()
+                self._pending_migrate_links[d.cid] = pre
             acted.append(d.cid)
         return acted
 
@@ -578,6 +644,7 @@ class Orchestrator:
         newest-first with bounded retries, falling back past corrupt
         checkpoints (``restore_fallback`` events) before resubmitting
         from scratch as the last resort."""
+        fsp = self._span("orch.node_failure", node=node_id)
         agent = self.agents[node_id]
         agent.fail()
         rt = agent.engine.runtime
@@ -605,21 +672,31 @@ class Orchestrator:
                                   meta=dict(st.meta))
                 target = self.placement.select_node(
                     probe, self, {}, running=self.scheduler.run_queue)
+                rsp = (fsp.child("orch.restore", cid=st.tid)
+                       if fsp is not None else None)
                 snap = None
                 if target is not None:
-                    snap = self._restore_from_candidates(st, dep, target)
+                    snap = self._restore_from_candidates(st, dep, target,
+                                                         rsp)
                 if snap is not None:
                     st.state = TaskState.RUNNING
                     st.node_id = target
                     self.scheduler.run_queue.append(st)
                     self._log("restored", cid=st.tid, node=target,
                               snap=snap)
+                    if rsp is not None:
+                        rsp.annotate(node=target, outcome="restored",
+                                     snap=snap).end()
                 else:
                     # no (usable) snapshot: restart from scratch
                     st.state = TaskState.WAITING
                     st.node_id = None
                     self.scheduler.submit(st)
                     self._log("resubmitted", cid=st.tid)
+                    if rsp is not None:
+                        rsp.annotate(outcome="resubmitted").end()
+        if fsp is not None:
+            fsp.end()
 
     def _replay_serve_requests(self, service: str, engine_id: str):
         """Re-enqueue a crashed serve replica's leased in-flight requests
@@ -637,7 +714,7 @@ class Orchestrator:
                       replayed=n)
 
     def _restore_from_candidates(self, st: SchedTask, dep: Deployment,
-                                 target: str) -> Optional[str]:
+                                 target: str, rsp=None) -> Optional[str]:
         """Try snapshot candidates newest-first; each restore attempt gets
         bounded retries for transient faults and falls back to the next
         older snapshot on corruption.  Returns the path restored from."""
@@ -650,7 +727,7 @@ class Orchestrator:
                                                         dep.image_ref),
                     self.retry,
                     on_retry=lambda n, b, e: self._on_action_retry(
-                        "restore", st.tid, n, b, e))
+                        "restore", st.tid, n, b, e, rsp))
                 return snap
             except (CheckpointCorruptError, TransientFault) as e:
                 self.metrics.record_event(
@@ -658,6 +735,9 @@ class Orchestrator:
                     error=repr(e))
                 self._log("restore_fallback", cid=st.tid, snap=snap,
                           error=repr(e))
+                if rsp is not None:
+                    rsp.child("orch.restore_fallback", snap=snap,
+                              error=repr(e)).end()
             except NodeFailed:
                 return None           # restore target died too
         return None
@@ -686,6 +766,12 @@ class Orchestrator:
                 return True
             time.sleep(0.02)
         return False
+
+    def _span(self, name: str, **labels):
+        """A span on the cluster trace (None when tracing is off)."""
+        if self._cluster_trace is None:
+            return None
+        return self._cluster_trace.span(name, **labels)
 
     def _log(self, event: str, **kw):
         self.events.append((time.time(), event, kw))

@@ -488,9 +488,14 @@ class ServingSimulator:
         self._service_time = service_time_fn or (lambda r: r.service_s)
         self.now = 0.0
         self.metrics = MetricsRegistry(clock=lambda: self.now)
+        # virtual-clock tracing: the same span abstraction the live plane
+        # uses, timestamped in simulated seconds (deterministic)
+        self.tracer = None
+        self._req_trace: Dict[str, tuple] = {}   # rid -> (trace, open span)
         if trace:
-            raise NotImplementedError(
-                "simulator tracing (trace=True) is not ported yet")
+            from repro_torch.obs import Tracer
+            self.tracer = Tracer(clock=lambda: self.now, capacity=4096,
+                                 sample_rate=1.0)
         self.active = initial_replicas          # provisioned servers
         self.provisioning = 0                   # servers booting
         self._provision_cancel = 0
@@ -572,6 +577,11 @@ class ServingSimulator:
             req = self.queue.popleft()
             self.busy += 1
             dur = self._service_time(req)
+            if req.rid in self._req_trace:
+                tr, sp = self._req_trace[req.rid]
+                if sp is not None:
+                    sp.end()
+                self._req_trace[req.rid] = (tr, tr.span("sim.service"))
             epoch = self._kv_epoch.get(req.rid, 0)
             if self.kv is not None:
                 need = self.kv.prompt_pages()
@@ -590,6 +600,10 @@ class ServingSimulator:
     def _on_arrive(self, req: Request):
         self._pending_arrivals -= 1
         self.metrics.counter(M_REQUESTS, service=self.service).inc()
+        if self.tracer is not None:
+            tr = self.tracer.start_trace("request", trace_id=req.rid,
+                                         service=self.service)
+            self._req_trace[req.rid] = (tr, tr.span("router.queue"))
         self.queue.append(req)
         self._dispatch()
 
@@ -611,6 +625,12 @@ class ServingSimulator:
         self._kv_epoch[req.rid] = epoch + 1
         self.busy -= 1
         self.queue.appendleft(req)
+        if req.rid in self._req_trace:
+            tr, sp = self._req_trace[req.rid]
+            if sp is not None:
+                sp.annotate(preempted=True).end()
+            self._req_trace[req.rid] = (tr, tr.span("router.queue",
+                                                    requeued=True))
         self.kv_preemptions += 1
         self.metrics.counter(M_PREEMPTIONS, service=self.service).inc()
         self._dispatch()
@@ -624,6 +644,11 @@ class ServingSimulator:
         self.busy -= 1
         latency = self.now - req.arrival_t
         self._latencies.append(latency)
+        if req.rid in self._req_trace:
+            tr, sp = self._req_trace.pop(req.rid)
+            if sp is not None:
+                sp.end()
+            tr.finish(latency_s=latency)
         self.metrics.counter(M_COMPLETIONS, service=self.service).inc()
         self.metrics.histogram(M_LATENCY, service=self.service,
                                window_s=self.params.hist_window_s,

@@ -49,11 +49,18 @@ class TaskImage:
     # engine-serve: per-request cap and paged KV memory (None/() keep the
     # engine's defaults)
     max_new_tokens: int = 8
+    paged_kv: bool = True
     page_size: int = 8
     kv_pool_pages: Optional[int] = None
+    kv_reserve_pages: int = 1
     prompt_buckets: tuple = ()      # e.g. (128, 512); empty = (prompt_len,)
     fuse_steps: int = 1             # greedy steps per decode EXECUTE
     async_depth: int = 0            # decode EXECUTEs submitted ahead
+    # engine-serve speculative decode (0 = off)
+    spec_k: int = 0
+    spec_draft_arch: Optional[str] = None   # None = self-draft (target arch)
+    spec_draft_seed: Optional[int] = None   # None = engine seed
+    spec_dynamic_k: bool = False    # adapt lookahead from live accept rate
     opt: OptConfig = field(default_factory=lambda: OptConfig(
         warmup_steps=2, decay_steps=100))
 
@@ -355,18 +362,24 @@ class EngineServeTask(GuestTask):
 
     def setup(self, cl: FunkyCL, gs: GuestState, restore: bool) -> None:
         from repro_torch.scaling.serving import get_router
-        from repro_torch.serve.engine import ContinuousBatchingEngine
+        from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                              SpecConfig)
 
         if restore and self._engine is not None:
             return                          # migrated whole: keep the lanes
         im = self.image
         self._router = get_router(im.name, registry=cl._monitor.telemetry)
+        spec = (SpecConfig(k=im.spec_k, draft_arch=im.spec_draft_arch,
+                           draft_seed=im.spec_draft_seed,
+                           dynamic_k=im.spec_dynamic_k)
+                if im.spec_k > 0 else None)
         self._engine = ContinuousBatchingEngine(
             im.arch, cl, slots=im.global_batch, prompt_len=im.prompt_len,
             max_new_tokens=im.max_new_tokens, service=im.name,
             engine_id=cl._monitor.task_id, seed=im.seed,
-            page_size=im.page_size, pool_pages=im.kv_pool_pages,
-            prompt_buckets=im.prompt_buckets or None,
+            paged=im.paged_kv, page_size=im.page_size,
+            pool_pages=im.kv_pool_pages, reserve_pages=im.kv_reserve_pages,
+            prompt_buckets=im.prompt_buckets or None, spec=spec,
             fuse_steps=im.fuse_steps, async_depth=im.async_depth)
         self._engine.setup(restore=restore)
 

@@ -77,6 +77,12 @@
 // a lane with bt[b, 0] < 0 (inactive) keeps no slot and writes zeros, and
 // a pos past the mapped span needs no check.  Everything after the keep
 // bits (ring, products, softmax, cluster merge) is the dense kernel's.
+//
+// Per-lane positions (the dense entry with lanes = 1): pos (B,) and kv_pos
+// (B, cap), lane b reading pos[b] and row b of kv_pos, for caches whose
+// lanes sit at different positions (the serving engine's reserved lanes
+// and speculative draft lanes, each its own dense ring).  Only the keep
+// bits read them; the rest is unchanged.
 #include <math.h>
 
 #include <cooperative_groups.h>
@@ -126,6 +132,10 @@ struct PagedArgs {
   int max_blocks, ps;      // table width, slots per page
   long long kv_pstride;    // elements between two pages of k (and of v)
   long long pos_pstride;   // elements between two pages of kv_pos
+  // dense entry: elements between two lanes' kv_pos rows and positions
+  // (0 and 0: one kv_pos row and one position shared by every lane)
+  long long kvpos_lstride;
+  int pos_lstride;
 };
 
 template <typename T, int HD, bool PAGED>
@@ -158,7 +168,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
-  const int pos = PAGED ? pos_ptr[b] : *pos_ptr;
+  const int pos = PAGED ? pos_ptr[b] : pos_ptr[(size_t)b * pg.pos_lstride];
   const int s0 = rank * chunk, s1 = min(cap, s0 + chunk);
   const int nb = s1 > s0 ? (s1 - s0 + BS - 1) / BS : 0;
   const int lp0 = PAGED ? s0 / pg.ps : 0;
@@ -180,7 +190,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (phys < 0) return false;
       kp = kv_pos[(size_t)phys * pg.pos_pstride + j % pg.ps];
     } else {
-      kp = kv_pos[j];
+      kp = kv_pos[(size_t)b * pg.kvpos_lstride + j];
     }
     return kp <= pos && (window <= 0 || pos - kp < window);
   };
@@ -683,15 +693,20 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
 // Returns a cudaError_t code (0 = launched).  Does not synchronize.  chunk
 // (slots per CTA, a multiple of 64) and nclu (CTAs per cluster, 1-16, with
 // (nclu - 1) * chunk < cap <= nclu * chunk) come from ops.py: split_plan.
+// lanes = 0: kv_pos (cap,) and pos (1,), shared by every lane; lanes = 1:
+// kv_pos (B, cap) and pos (B,), one row and one position a lane.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* kv_pos,
                                     const void* pos, void* o, int dtype, int B,
                                     int cap, int Hq, int Hkv, int hd,
                                     int window, float softcap, int chunk,
-                                    int nclu, void* stream) {
+                                    int nclu, int lanes, void* stream) {
+  if (lanes != 0 && lanes != 1) return (int)cudaErrorInvalidValue;
   return dispatch<false>(dtype, hd, q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv,
                          window, softcap, chunk, nclu,
-                         PagedArgs{nullptr, 0, 1, 0, 0}, stream);
+                         PagedArgs{nullptr, 0, 1, 0, 0,
+                                   lanes ? (long long)cap : 0LL, lanes},
+                         stream);
 }
 
 // The paged entry: q (B,1,Hq,hd) and o contiguous; k_pool/v_pool
@@ -712,6 +727,7 @@ extern "C" int decode_attention_paged_fwd(
   return dispatch<true>(dtype, hd, q, k_pool, v_pool, kv_pos_pool, pos, o, B,
                         max_blocks * ps, Hq, Hkv, window, softcap, chunk, nclu,
                         PagedArgs{static_cast<const int*>(block_table),
-                                  max_blocks, ps, kv_pstride, pos_pstride},
+                                  max_blocks, ps, kv_pstride, pos_pstride,
+                                  0LL, 0},
                         stream);
 }

@@ -11,7 +11,9 @@ thread-block cluster and merges their partial softmaxes in the same launch;
 ``decode_attention_paged`` is the serving engine's entry: the same kernel
 reading each lane's pages in place through its block-table row, with its
 own plain version (``decode_attention_paged_ref``) and its own count,
-``decode_attention_paged.launches``.
+``decode_attention_paged.launches``; ``decode_attention_paged.launches_b1``
+counts apart those of its launches that take one lane (B 1, the prefix
+cache's ``prefill_chunk``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ MAX_CLUSTER = 16    # csrc/decode_attention.cu: MAX_CLUSTER (non-portable > 8)
 CHUNK_GRANULE = 64  # csrc/decode_attention.cu: CHUNK_GRANULE (whole blocks)
 MAX_CHUNK = 32768   # csrc/decode_attention.cu: MAX_CHUNK (one keep bit a slot)
 BT_STAGE = 1024     # csrc/decode_attention.cu: BT_STAGE (table entries a CTA)
-_ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P)
+_ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P)
 _L = ctypes.c_longlong
 _PAGED_ARGTYPES = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, _L, _L, I, F,
                    I, I, P)
@@ -86,7 +88,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      softcap: float = 0.0) -> torch.Tensor:
     """q: (B, 1, Hq, hd); k/v: (B, cap, Hkv, hd); kv_pos: (cap,) int32
     absolute slot positions (2**30 = unwritten); pos: int or one-element
-    int tensor, the query's position.  Returns (B, 1, Hq, hd)."""
+    int tensor, the query's position.  Returns (B, 1, Hq, hd).
+
+    Per-lane positions: kv_pos (B, cap) and pos (B,), lane b attending
+    with its own row and position (lanes of one batch at different
+    positions, each its own ring)."""
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor([int(pos)], dtype=torch.int32, device=q.device)
     if on_cpu(q, k, v, kv_pos, pos):
@@ -95,13 +101,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_shapes(q, k, v)
     B, _, Hq, hd = q.shape
     _, cap, Hkv, _ = k.shape
-    if kv_pos.shape != (cap,) or kv_pos.dtype != torch.int32 \
+    lanes = kv_pos.dim() == 2
+    want = (B, cap) if lanes else (cap,)
+    if tuple(kv_pos.shape) != want or kv_pos.dtype != torch.int32 \
             or not kv_pos.is_contiguous():
         raise ValueError(f"decode_attention: kv_pos must be contiguous "
-                         f"int32 of shape ({cap},)")
+                         f"int32 of shape {want}")
     pos = pos.reshape(-1)
-    if pos.numel() != 1 or pos.dtype != torch.int32:
-        raise ValueError("decode_attention: pos must be one int32 value")
+    if pos.numel() != (B if lanes else 1) or pos.dtype != torch.int32 \
+            or not pos.is_contiguous():
+        raise ValueError(f"decode_attention: pos must be "
+                         f"{B if lanes else 1} int32 value(s)")
     code = check_operands("decode_attention", {"q": q, "k": k, "v": v},
                           q.dtype)
     chunk, cluster = split_plan(B, Hkv, cap, sm_count(q.device))
@@ -110,7 +120,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
                 pos.data_ptr(), out.data_ptr(), code, B, cap, Hq, Hkv, hd,
-                int(window), float(softcap), chunk, cluster, stream_of(q))
+                int(window), float(softcap), chunk, cluster, int(lanes),
+                stream_of(q))
     raise_on_error("decode_attention", rc)
     decode_attention.launches += 1
     return out
@@ -207,7 +218,10 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                 cluster, stream_of(q))
     raise_on_error("decode_attention_paged", rc)
     decode_attention_paged.launches += 1
+    if B == 1:
+        decode_attention_paged.launches_b1 += 1
     return out
 
 
 decode_attention_paged.launches = 0
+decode_attention_paged.launches_b1 = 0

@@ -22,11 +22,21 @@ from repro_torch.models.attention import _INVALID_POS, sdpa_naive
 def decode_attention_ref(q, k, v, pos, kv_pos, *, window: int = 0,
                          softcap: float = 0.0):
     """q: (B,1,Hq,hd) over cache (B,cap,Hkv,hd) with absolute ``kv_pos``;
-    ``gqa_decode``'s ``sdpa_naive`` call with ``q_pos=[pos]``."""
-    q_pos = torch.as_tensor(pos, dtype=torch.int32,
-                            device=q.device).reshape(1)
-    return sdpa_naive(q, k, v, causal=True, window=window, q_pos=q_pos,
-                      kv_pos=kv_pos, softcap=softcap)
+    ``gqa_decode``'s ``sdpa_naive`` call with ``q_pos=[pos]``.  With
+    per-lane positions (``kv_pos`` (B, cap), ``pos`` (B,)) each lane is
+    that call at batch 1 on its own row, as the reference vmaps the dense
+    decode over its lanes."""
+    q_pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    if kv_pos.dim() == 2:
+        q_pos = q_pos.reshape(-1)
+        return torch.cat([
+            sdpa_naive(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True,
+                       window=window, q_pos=q_pos[b:b + 1],
+                       kv_pos=kv_pos[b], softcap=softcap)
+            for b in range(q.shape[0])])
+    return sdpa_naive(q, k, v, causal=True, window=window,
+                      q_pos=q_pos.reshape(1), kv_pos=kv_pos,
+                      softcap=softcap)
 
 
 def gather_pages(leaf, block_row, *, slot_axis: int, page_size: int,

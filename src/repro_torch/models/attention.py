@@ -233,24 +233,38 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One-token decode. x: (B, 1, D); pos: 0-d int32 tensor; cache k/v:
     (B, cap, Hkv, hd).  Writes the new k/v at ring slot ``pos % cap`` of
     ``cache`` in place and attends over cached absolute positions <= pos
-    (within the sliding window, if any)."""
-    cap = cache["k"].shape[1]
-    positions = pos.reshape(1).to(torch.int32)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
-    slot = positions.long() % cap
-    k, v, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
-    k.index_copy_(1, slot, k_new)
-    v.index_copy_(1, slot, v_new)
-    kv_pos.index_copy_(0, slot, positions)
-    w = cfg.sliding_window if window is None else window
-    if impl == "kernel":
-        from repro_torch.kernels.decode_attention import ops as da_ops
+    (within the sliding window, if any).
 
-        out = da_ops.decode_attention(q, k, v, positions, kv_pos, window=w,
-                                      softcap=cfg.attn_logit_softcap)
+    Per-lane lanes (the engine's reserved and draft lanes, each its own
+    ring at its own position, as the reference vmaps this decode over
+    lanes): ``kv_pos`` (B, cap) and pos (B,); lane b writes slot
+    ``pos[b] % cap`` of its row."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    cap = cache["k"].shape[1]
+    k, v, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
+    if kv_pos.dim() == 2:
+        B = x.shape[0]
+        positions = pos.reshape(B).to(torch.int32)
+        q, k_new, v_new = _project_qkv(cfg, p, x, positions.reshape(B, 1))
+        lanes = torch.arange(B, device=x.device)
+        slot = positions.long() % cap
+        k[lanes, slot] = k_new[:, 0]
+        v[lanes, slot] = v_new[:, 0]
+        kv_pos[lanes, slot] = positions
+    else:
+        positions = pos.reshape(1).to(torch.int32)
+        q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+        slot = positions.long() % cap
+        k.index_copy_(1, slot, k_new)
+        v.index_copy_(1, slot, v_new)
+        kv_pos.index_copy_(0, slot, positions)
+    w = cfg.sliding_window if window is None else window
+    kw = dict(window=w, softcap=cfg.attn_logit_softcap)
+    if impl == "kernel":
+        out = da_ops.decode_attention(q, k, v, positions, kv_pos, **kw)
     elif impl == "naive":
-        out = sdpa_naive(q, k, v, causal=True, window=w, q_pos=positions,
-                         kv_pos=kv_pos, softcap=cfg.attn_logit_softcap)
+        out = da_ops.decode_attention_ref(q, k, v, positions, kv_pos, **kw)
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
     return _out_proj(out, p["wo"]), cache

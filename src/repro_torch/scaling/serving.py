@@ -1,6 +1,6 @@
 """The per-request serving path's frontend and the live-plane drive loops
-(the reference's ``scaling/serving.py``; its prefix-warmth probes, engine
-roles and lease transfer are not ported yet).
+(the reference's ``scaling/serving.py``; its engine roles and lease
+transfer are not ported yet).
 
 * ``RequestRouter`` — intake, KV-aware pop, completion, requeue and crash
   replay.  Requests are published to the router; every ``EngineServeTask``
@@ -64,6 +64,20 @@ class RequestRouter:
     publishes).  A non-preferred replica is deferred exactly once and
     served on its next pop, so preference never starves a replica.
 
+    **Prefix-hit-aware routing**: engines with a prefix cache register a
+    probe (``register_prefix_probe``) that reports how many tokens of a
+    prompt their radix tree already holds.  A pop then prefers the replica
+    with the warmest matching prefix for the request at the head of the
+    queue.  Warmth is capped by free-page headroom: a warm replica whose
+    pool has fallen below half the best replica's free pages loses its
+    preference, and the router falls back to the free-page balance above.
+
+    With a tracer (``tracer=``), each submitted request starts a trace
+    (trace id = rid) with a ``router.queue`` span ending at its pop;
+    engines sharing the tracer hang their spans off the same trace, so one
+    request is one connected tree.  A replayed or requeued request's new
+    trace links back to its predecessor (relation ``recovers``).
+
     Every popped request holds a lease until its engine completes or
     requeues it; ``complete`` counts each request once.  ``fail_engine``
     replays a crashed replica's leases, recording each request's
@@ -72,14 +86,17 @@ class RequestRouter:
     """
 
     def __init__(self, service: str = "svc", registry=None,
-                 kv_aware: bool = True):
+                 kv_aware: bool = True, tracer=None):
         self.service = service
         self.registry = registry
         self.kv_aware = kv_aware
+        self.tracer = tracer            # repro_torch.obs.Tracer, optional
         self.closed = False
         self._lock = threading.Lock()
         self._pending: deque = deque()
         self._deferred: set = set()     # engines already held back once
+        # engine_id -> prompt -> matched-token count (prefix-cache warmth)
+        self._prefix_probes: Dict[str, Callable] = {}
         self._leases: Dict[str, tuple] = {}   # rid -> (req, engine_id)
         self.completed: Dict[str, object] = {}   # rid -> CompletedRequest
         self.duplicates = 0
@@ -97,29 +114,73 @@ class RequestRouter:
                 raise RuntimeError(f"router {self.service} is closed")
             if req.arrival_t is None and self.registry is not None:
                 req.arrival_t = self.registry.clock()
+            if (self.tracer is not None
+                    and getattr(req, "trace", None) is None):
+                req.trace = self.tracer.start_trace(
+                    "request", trace_id=req.rid, service=self.service)
+            if getattr(req, "trace", None) is not None:
+                req._router_span = req.trace.span("router.queue",
+                                                  service=self.service)
             self._pending.append(req)
         if self.registry is not None:
             self.registry.counter(M_REQUESTS, service=self.service).inc()
 
+    def register_prefix_probe(self, engine_id: str, probe: Callable) -> None:
+        """Install a replica's prefix-cache warmth probe:
+        ``probe(prompt) -> matched token count``.  Engines with a prefix
+        cache call this from ``pump``; idempotent."""
+        with self._lock:
+            self._prefix_probes[engine_id] = probe
+
+    def _free_pages(self) -> Dict[str, float]:
+        if self.registry is None:
+            return {}
+        return {lbl["engine"]: v for lbl, v in
+                self.registry.labeled_gauge_values(
+                    M_KV_FREE_PAGES, service=self.service)
+                if "engine" in lbl}
+
     def _kv_preferred(self, engine_id: str) -> bool:
         """True unless another engine publishes strictly more free pages
         (unknown engines and registry-less routers are always preferred)."""
-        if self.registry is None:
-            return True
-        per_engine = {lbl["engine"]: v for lbl, v in
-                      self.registry.labeled_gauge_values(
-                          M_KV_FREE_PAGES, service=self.service)
-                      if "engine" in lbl}
+        per_engine = self._free_pages()
         if not per_engine or engine_id not in per_engine:
             return True
         return per_engine[engine_id] >= max(per_engine.values())
+
+    def _preferred(self, engine_id: str) -> bool:
+        """Routing preference for the request at the head of the queue:
+        the warmest matching prefix first (capped by free-page headroom, so
+        hit skew cannot starve the cold replicas), free KV pages as the
+        fallback."""
+        if self._prefix_probes:
+            head = self._pending[0]
+            warmth = {}
+            for eid, probe in self._prefix_probes.items():
+                try:
+                    warmth[eid] = int(probe(head.prompt))
+                except Exception:  # noqa: BLE001 - replica mid-evacuation
+                    warmth[eid] = 0
+            best = max(warmth.values(), default=0)
+            if best > 0:
+                warm = {e for e, w in warmth.items() if w == best}
+                free = self._free_pages()
+                if free:
+                    # headroom cap: a warm replica running low on pages
+                    # loses its preference (the prefill saving would be
+                    # paid back in OOM preemptions)
+                    bar = max(free.values()) / 2.0
+                    warm = {e for e in warm if free.get(e, bar) >= bar}
+                if warm:
+                    return engine_id in warm
+        return self._kv_preferred(engine_id)
 
     def pop(self, n: int, engine_id: Optional[str] = None) -> list:
         if n <= 0:
             return []
         with self._lock:
             if (self.kv_aware and engine_id is not None and self._pending
-                    and not self._kv_preferred(engine_id)):
+                    and not self._preferred(engine_id)):
                 if engine_id not in self._deferred:
                     self._deferred.add(engine_id)
                     return []
@@ -128,6 +189,10 @@ class RequestRouter:
             while self._pending and len(out) < n:
                 req = self._pending.popleft()
                 self._leases[req.rid] = (req, engine_id)
+                rsp = getattr(req, "_router_span", None)
+                if rsp is not None:
+                    rsp.annotate(engine=engine_id).end()
+                    req._router_span = None
                 out.append(req)
             return out
 
@@ -157,13 +222,29 @@ class RequestRouter:
         """Return popped-but-unfinished requests (a killed replica's) to
         the head of the queue; their arrival times stick."""
         with self._lock:
-            self._requeue_locked(reqs)
+            self._requeue_locked(reqs, reason="requeued")
 
-    def _requeue_locked(self, reqs: list) -> None:
+    def _requeue_locked(self, reqs: list, reason: str) -> None:
         for req in reqs:
             self._leases.pop(req.rid, None)
-        if not self.closed:
-            self._pending.extendleft(reversed(reqs))
+        if self.closed:
+            return
+        for req in reqs:
+            if (self.tracer is not None
+                    and getattr(req, "trace", None) is None):
+                req.trace = self.tracer.start_trace(
+                    "request", trace_id=req.rid, service=self.service,
+                    **{reason: True})
+                # link the recovery trace back to the pre-crash or
+                # pre-evacuation one: one timeline per request
+                prev = getattr(req, "_prev_trace", None)
+                if prev is not None:
+                    req.trace.link(prev, relation="recovers")
+                    req._prev_trace = None
+            if getattr(req, "trace", None) is not None:
+                req._router_span = req.trace.span(
+                    "router.queue", service=self.service, **{reason: True})
+        self._pending.extendleft(reversed(reqs))
 
     def fail_engine(self, engine_id: str) -> int:
         """Replica crash recovery: replay every request the dead engine
@@ -172,11 +253,17 @@ class RequestRouter:
         run reproduces them as a prefix and the exactly-once guard rejects
         double completion.  Returns the number of requests replayed."""
         with self._lock:
+            self._prefix_probes.pop(engine_id, None)
             reqs = [req for req, eng in self._leases.values()
                     if eng == engine_id]
             for req in reqs:
                 self.replayed[req.rid] = list(req.committed or [])
-            self._requeue_locked(reqs)
+                tr = getattr(req, "trace", None)
+                if tr is not None:
+                    req._prev_trace = tr
+                    tr.finish(crashed=True, engine=engine_id)
+                    req.trace = None
+            self._requeue_locked(reqs, reason="replayed")
             if self.registry is not None and reqs:
                 self.registry.record_event(
                     "router_replay", service=self.service,
@@ -201,14 +288,16 @@ _ROUTERS: Dict[str, RequestRouter] = {}
 _ROUTERS_LOCK = threading.Lock()
 
 
-def get_router(service: str, registry=None) -> RequestRouter:
+def get_router(service: str, registry=None, tracer=None) -> RequestRouter:
     with _ROUTERS_LOCK:
         r = _ROUTERS.get(service)
         if r is None:
-            r = RequestRouter(service, registry=registry)
+            r = RequestRouter(service, registry=registry, tracer=tracer)
             _ROUTERS[service] = r
         if registry is not None and r.registry is None:
             r.registry = registry
+        if tracer is not None and r.tracer is None:
+            r.tracer = tracer
         return r
 
 

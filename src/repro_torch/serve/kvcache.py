@@ -31,6 +31,15 @@ gather never returns its contents as a valid slot.
 
 The helpers update the pool in place (it is the EXECUTE's donated buffer)
 and return it.
+
+Per-lane dense caches (reserved lanes and speculative draft lanes):
+``lane_cache_specs`` stacks ``lanes`` one-lane prefill caches, each its
+own ring, the lane on axis 1 after the stacked layer axis (``kv_pos``
+gains that axis: ``(*lead, lanes, cap)``); ``install_lane_cache`` writes
+one prefill cache into a lane, padding a shorter bucket's token axis.
+Which axis holds tokens comes from the leaf's name (``token_axis``),
+where the reference diffs two prefill lengths
+(``token_axes_from_lengths``, ``_is_pos_leaf``).
 """
 
 from __future__ import annotations
@@ -432,3 +441,60 @@ def apply_block_table_delta(block_table: torch.Tensor, delta):
         block_table[idx[:, 0], idx[:, 1]] = torch.tensor(
             list(cells.values()), dtype=block_table.dtype, device=dev)
     return block_table
+
+
+# ---------------------------------------------------------------------------
+# Per-lane dense caches
+# ---------------------------------------------------------------------------
+def token_axis(name: str, leaf) -> Optional[int]:
+    """Axis of a one-lane prefill cache leaf that holds tokens: k/v
+    ``(*lead, 1, S, Hkv, hd)`` and kv_pos ``(*lead, S)``; other leaves (SSM
+    and RG-LRU states, conv windows) hold none."""
+    if name in _KV:
+        return leaf.dim() - 3
+    if name == _POS:
+        return leaf.dim() - 1
+    return None
+
+
+def lane_cache_specs(pf_cache_abs, lanes: int, cap: Optional[int] = None):
+    """Specs of ``lanes`` per-lane caches from a one-lane prefill cache's
+    specs: the lane axis replaces the prefill's batch axis (axis 1, after
+    the stacked layer axis; kv_pos gains it), and the token axis holds
+    ``cap`` slots (default: the prefill's)."""
+    meta = torch.device("meta")
+
+    def mk(name, leaf):
+        shp = list(leaf.shape)
+        ax = token_axis(name, leaf)
+        if ax is not None and cap is not None:
+            shp[ax] = cap
+        if name == _POS:
+            shp.insert(1, lanes)
+        else:
+            shp[1] = lanes
+        return torch.empty(shp, dtype=leaf.dtype, device=meta)
+
+    return _map_named(mk, pf_cache_abs)
+
+
+def install_lane_cache(caches, pf_cache, slot: int):
+    """Write a one-lane prefill cache into lane ``slot`` of per-lane caches
+    in place; a token axis shorter than the lanes' (a smaller prompt
+    bucket) is padded at its end with zeros (k/v) and INVALID (kv_pos)."""
+    def f(name, lane_all, new):
+        row = new if name == _POS else new.squeeze(1)
+        ax = token_axis(name, new)
+        if ax is not None:
+            ax = ax if name == _POS else ax - 1
+            pad = lane_all.shape[ax + 1] - row.shape[ax]
+            if pad:
+                fill = torch.full(
+                    row.shape[:ax] + (pad,) + row.shape[ax + 1:],
+                    _INVALID_POS if name == _POS else 0,
+                    dtype=row.dtype, device=row.device)
+                row = torch.cat([row, fill], dim=ax)
+        lane_all[:, int(slot)] = row.to(lane_all.dtype)
+        return lane_all
+
+    return _map_named(f, caches, pf_cache)

@@ -219,9 +219,16 @@ def test_make_cluster_defaults_to_the_card(no_card, tmp_path):
         assert cl.metrics is cl.orchestrator.metrics
     finally:
         cl.stop()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_cluster(num_nodes=1, device="cpu", ckpt_root=str(tmp_path),
-                     tracer=object())
+    from repro_torch.obs import Tracer
+
+    tracer = Tracer()
+    cl = make_cluster(num_nodes=1, device="cpu", ckpt_root=str(tmp_path),
+                      tracer=tracer)
+    try:
+        assert cl.orchestrator.tracer is tracer
+        assert tracer.find("cluster") is not None
+    finally:
+        cl.stop()
 
 
 def test_node_agent_introspection(ref, tmp_path):
@@ -472,7 +479,12 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
     by an Algorithm 1 eviction, and the evicted batch task finishes where
     a slice frees with the tokens of the uninterrupted one.  Then a burst
     through ``drive_engine_open_loop`` makes the autoscaler replicate the
-    service, and the drained backlog makes it scale back in."""
+    service, and the drained backlog makes it scale back in.
+
+    The router holds the burst's backlog until the drive has seen both
+    replicas (its ``on_tick`` report): otherwise, on a loaded host, the
+    one replica could drain the 0.1 s burst before the clone lands, and
+    the drive would end without ever counting two replicas."""
     name = "svc-a"
     cl = make_cluster(num_nodes=2, slices_per_node=1, device="cpu",
                       images={name: _engine_image(name),
@@ -507,10 +519,21 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
         asc = Autoscaler(QueueLengthPolicy(0.5), min_replicas=1,
                          max_replicas=2, scale_down_cooldown_s=0.3)
         orch.attach_autoscaler(asc, scaler, service=name, interval_s=0.02)
+        two_seen = threading.Event()
+        pop = router.pop
+
+        def held_pop(n, engine_id=None):
+            return pop(n, engine_id=engine_id) if two_seen.is_set() else []
+
+        def on_tick(now, n_rep, pending, p95):
+            if n_rep == 2:
+                two_seen.set()
+
+        router.pop = held_pop
         res = drive_engine_open_loop(
             orch, scaler, DRIVES["scale"](), duration_s=0.1, slo_s=10.0,
             service=name, prompt_len=PROMPT_LEN, slots_per_replica=SLOTS,
-            tick_s=0.01, drain_timeout_s=120.0)
+            tick_s=0.01, drain_timeout_s=120.0, on_tick=on_tick)
         _await(lambda: "scale_in" in _events(orch), "the scale-in")
         assert res.max_replicas == 2 and "replicate" in _events(orch)
         assert res.served == len(ref["scale"])

@@ -335,17 +335,15 @@ def test_unported_features_raise():
     mk = lambda **kw: ContinuousBatchingEngine(  # noqa: E731
         "yi-9b-smoke", FunkyCL(mon), slots=2, prompt_len=PROMPT_LEN,
         max_new_tokens=4, page_size=PAGE, **kw)
-    for kw in (dict(spec=object()), dict(prefix_cache=True),
-               dict(role="prefill"), dict(paged=False),
-               dict(tracer=object())):
+    for role in ("prefill", "decode"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            mk(**kw)
+            mk(role=role)
     eng = mk()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.attach_transfer(None)
-    eng._legacy_admit = True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.setup()
+    for call in (lambda: eng.attach_transfer(None),
+                 lambda: eng.export_lane(None),
+                 lambda: eng.import_lane(None)):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            call()
     with pytest.raises(ValueError):
         mk(fuse_steps=0)
     with pytest.raises(ValueError):       # SSM states have no pages

@@ -33,10 +33,13 @@ assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(" ".join(names))
 """
 
-# modules that must be among the walked ones (the training slice's too)
+# modules that must be among the walked ones (the training slice's, the
+# tracer's and the prefix cache's too)
 _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.train.train_step", "repro_torch.core.tasks",
-             "repro_torch.models.transformer", "repro_torch.testing"}
+             "repro_torch.models.transformer", "repro_torch.testing",
+             "repro_torch.obs", "repro_torch.obs.tracer",
+             "repro_torch.obs.export", "repro_torch.serve.prefix_cache"}
 
 
 def test_port_imports_without_jax_or_the_reference():

@@ -152,9 +152,3 @@ def test_sim_params_defaults_are_the_reference_constants():
     assert dataclasses.asdict(ServingParams()) == \
         dataclasses.asdict(JServingParams())
 
-
-def test_serving_simulator_trace_raises_not_ported():
-    from repro_torch.core.simulator import ServingSimulator
-
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingSimulator([], trace=True)
