@@ -18,7 +18,9 @@ caught):
    (bf16 on its mma route, f32 on the CUDA cores), K4 at
    recurrentgemma-9b's, plus ragged, small and edge cases (K1: wholly
    masked splits, one lane; K1 paged: pages of 4, an inactive lane, a
-   position on a page boundary, positions past the mapped span, a window;
+   position on a page boundary, positions past the mapped span, a window,
+   every lane inactive (the floor, timed), each case logging the route
+   ``paged_plan`` gave it;
    K2: Sq 1/127/129/200, windows ending on a tile
    boundary, hd 16 and 64; K3: chunk 100, the smoke shape), and the
    features phase's call patterns (K1 paged at one lane as
@@ -153,6 +155,8 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
+# ... and at speculative verify's first window (8 lanes, table width 11)
+VERIFY_PAGED_POS = [157, 142, 129, 174, 131, 136, 150, 166]
 # the full-width serving paths: arch, prompt length, launches expected per
 # prefill and per decoded token (batch 8, 4 steps of 8 tokens)
 PATHS = {
@@ -361,6 +365,29 @@ def _lane_kv_pos(cap, pos):
     return kv.cuda()
 
 
+def _decode_inputs(B, cap, Hq, Hkv, hd, pos, dtype, n_sets=8):
+    """K1's dense entry's inputs: ``n_sets`` random (q, k, v) (timing
+    cycles through them, so each launch reads its k/v from device memory,
+    not from L2, as in a real decode step), kv_pos and the positions."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dt = getattr(torch, dtype)
+    if isinstance(pos, list):
+        kv_pos = _lane_kv_pos(cap, pos)
+        posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    else:
+        kv_pos = _ring_kv_pos(cap, pos)
+        posv = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    sets = []
+    for _ in range(n_sets):
+        q = torch.randn((B, 1, Hq, hd), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, cap, Hkv, hd), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, cap, Hkv, hd), generator=g, device="cuda").to(dt)
+        sets.append((q, k, v))
+    return sets, kv_pos, posv
+
+
 def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
                  softcap=0.0, time_it=False, repeat=False):
     """K1's dense entry.  ``pos`` an int: one ring shared by the batch
@@ -374,24 +401,8 @@ def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
                                                           split_plan)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    dt = getattr(torch, dtype)
     lanes = isinstance(pos, list)
-    if lanes:
-        kv_pos = _lane_kv_pos(cap, pos)
-        posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    else:
-        kv_pos = _ring_kv_pos(cap, pos)
-        posv = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    # several cache copies: timing cycles through them so each launch reads
-    # its k/v from device memory, not from L2 (as in a real decode step)
-    n_sets = 8
-    sets = []
-    for _ in range(n_sets):
-        q = torch.randn((B, 1, Hq, hd), generator=g, device="cuda").to(dt)
-        k = torch.randn((B, cap, Hkv, hd), generator=g, device="cuda").to(dt)
-        v = torch.randn((B, cap, Hkv, hd), generator=g, device="cuda").to(dt)
-        sets.append((q, k, v))
+    sets, kv_pos, posv = _decode_inputs(B, cap, Hq, Hkv, hd, pos, dtype)
     q, k, v = sets[0]
     kw = dict(window=window, softcap=softcap)
     qpos = posv[:, None] if lanes else posv
@@ -510,8 +521,8 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
                 inactive=(), window=0, time_it=False):
     import torch
 
-    from repro_torch.kernels.decode_attention.ops import \
-        decode_attention_paged
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_paged, paged_plan, sm_count)
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_paged_ref
 
@@ -523,11 +534,14 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
     out = decode_attention_paged(q, k, v, kvp, bt, posv, **kw)
     ref = decode_attention_paged_ref(q, k, v, kvp, bt, posv, **kw)
     live = [b for b in range(B) if b not in inactive]
-    few = min(min(pos[b] + 1, max_blocks * ps) for b in live)
+    few = min((min(pos[b] + 1, max_blocks * ps) for b in live), default=0)
+    route, chunk, cluster = paged_plan(B, Hkv, max_blocks, ps, q.dtype,
+                                       sm_count(q.device))
     rec = {"case": tag, "shape": [B, ps, max_blocks, NP, Hq, Hkv, hd],
            "pos": pos, "inactive": list(inactive), "dtype": dtype,
-           "kept_slots": kept, "mapped_pages": mapped, **kw}
-    if few < K1_FEW_SLOTS and dtype != "float32":
+           "kept_slots": kept, "mapped_pages": mapped, "route": route,
+           "chunk": chunk, "cluster": cluster, **kw}
+    if 0 < few < K1_FEW_SLOTS and dtype != "float32":
         rec["plain_err"] = (out.float() - ref.float()).abs().max().item()
         ref = decode_attention_paged_ref(q.float(), k.float(), v.float(),
                                          kvp, bt, posv, **kw)
@@ -554,7 +568,9 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
             q, k, v, kvp, bt, posv, **kw)
         rec.update(
             ms=bench_ms(kern, args),
-            device_ms=device_ms(kern, args, expect="decode_split_kernel"),
+            device_ms=device_ms(kern, args, expect="decode_split_kernel"
+                                if route == "slots" else
+                                "decode_paged_kernel"),
             plain_ms=bench_ms(lambda q, k, v: decode_attention_paged_ref(
                 q, k, v, kvp, bt, posv, **kw), args, reps=5),
             gather_dense_ms=device_ms(lambda q, k, v: _gather_dense(
@@ -788,6 +804,11 @@ def phase_kernels(state):
                 ENGINE_PAGED_POS, "bfloat16", time_it=True)
     _paged_case(state, "path_f32", 8, 16, 36, 288, 32, 4, 128,
                 ENGINE_PAGED_POS, "float32", time_it=True)
+    # the floor: the engine's shape with every lane inactive (launch, table
+    # row, merge; no page read)
+    _paged_case(state, "floor_inactive", 8, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS, "bfloat16", inactive=tuple(range(8)),
+                time_it=True)
     _paged_case(state, "ps4_inactive_boundary", 4, 4, 40, 160, 32, 4, 128,
                 [100, 64, 159, 12], "bfloat16", inactive=(1,))
     _paged_case(state, "past_span", 3, 16, 8, 32, 32, 4, 128,
@@ -802,10 +823,10 @@ def phase_kernels(state):
     # slots) and the reserved lanes' (160)
     _paged_case(state, "chunk_b1", 1, 16, 5, 40, 32, 4, 128, [53],
                 "bfloat16", time_it=True)
-    verify0 = [157, 142, 129, 174, 131, 136, 150, 166]
     for i in range(4):
         _paged_case(state, f"verify_w{i}", 8, 16, 11, 88, 32, 4, 128,
-                    [p + i for p in verify0], "bfloat16", time_it=i == 0)
+                    [p + i for p in VERIFY_PAGED_POS], "bfloat16",
+                    time_it=i == 0)
     _decode_case(state, "draft", 8, 163, 32, 4, 128,
                  [128, 150, 131, 140, 159, 129, 133, 147], "bfloat16",
                  time_it=True)
@@ -1061,7 +1082,7 @@ def phase_parity_recurrentgemma(state):
 # ---------------------------------------------------------------------------
 
 # the port's kernels in a trace, by the name of their __global__ function
-KERNEL_SYMBOLS = {"K1": ("decode_split_kernel",),
+KERNEL_SYMBOLS = {"K1": ("decode_split_kernel", "decode_paged_kernel"),
                   "K2": ("flash_fwd_tma_kernel", "flash_fwd_mma_kernel",
                          "flash_fwd_kernel"),
                   "K3": ("ssd_scan_mma_kernel", "ssd_scan_kernel"),

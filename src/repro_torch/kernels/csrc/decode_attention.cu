@@ -68,16 +68,50 @@
 // and kv_pos pool (NP, ps) are one layer's views of the stacked pool: a
 // page is ps contiguous rows, pages lie kv_pstride (pos_pstride) elements
 // apart.  block_table (B, max_blocks) maps a lane's logical page to a
-// physical one (-1 unmapped); pos (B,) is each lane's query position.  The
-// split runs over the logical cap max_blocks * ps, as the dense split runs
-// over the ring; each CTA first stages the table entries of its slot range
-// in shared memory, and then a slot's row is phys * kv_pstride + (j % ps)
-// rows: the keep-bit pass reads kv_pos through it, the loads read k/v
-// through it.  An unmapped page's slots are never kept and never read, so
-// a lane with bt[b, 0] < 0 (inactive) keeps no slot and writes zeros, and
-// a pos past the mapped span needs no check.  Everything after the keep
-// bits (ring, products, softmax, cluster merge) is the dense kernel's.
+// physical one (-1 unmapped); pos (B,) is each lane's query position.  An
+// unmapped page is never read, so a lane with bt[b, 0] < 0 (inactive)
+// writes zeros.
 //
+// What bounds the paged entry on the H100: latency.  At the engine's
+// decode (B 8, pages of 16, table width 36, 32/4 heads, hd 128) it moves
+// 5.8 MB, 1.7 us at 3.35 TB/s; the template-flag version of the dense
+// kernel took 14.9 us, of which an empty launch is 0.9, the table and a
+// keep-bit pass over kv_pos 1.3 (two dependent round trips), the walk 9.7
+// and the merge 3.0 (tools/k1p_breakdown.py).  The walk was instruction
+// latency: one warp per scheduler, each running ~900 dependent
+// instructions a 64-slot block (runtime divisions by ps in every address,
+// the block's softmax repeated by every warp).  So bf16 pages take their
+// own kernel, decode_paged_kernel:
+//  * one round trip before the first copy: pos[b], the lane's first table
+//    entry, the CTA's table entries and q's fragments are loaded together;
+//    which tiles to copy is decided from the table alone (a tile is read
+//    when any of its pages is mapped); each tile's kv_pos rows come in the
+//    same cp.async copies as its k/v rows and mask after the wait (kv_pos
+//    stays the only authority: stale slots of mapped pages and lanes past
+//    their span mask there).  Stale slots are read, and counted.
+//  * each warp walks its own 16-slot tiles (one page at ps 16) with its
+//    own online softmax and 2 tiles in flight, with no barrier across
+//    warps.  Its products are transposed: scores k.q^T and o^T += v^T.p^T,
+//    the tile's 16 slots (then hd) on the mma's 16 rows and the G heads on
+//    its 8 columns, so yi-9b's G = 8 fills every product (8 mma.sync a
+//    tile for each, half of a 16-row head tile's); p goes from the scores'
+//    fragments to p.v's B operand by movmatrix (4 expf a thread a tile).
+//    ps 1, 4 and 16 are template parameters, other sizes one generic
+//    instantiation.
+//  * the 4 warps merge in shared memory in warp order.  A short table
+//    (paged_plan in ops.py, from static shapes only) takes one CTA per
+//    (lane, kv head) and no cluster: the warps' merge is the output.  A
+//    longer one splits by whole pages over a cluster; each CTA owns a slice
+//    of the output, pushes the other slices' partials and every row's
+//    (m, l) into their owners' shared memory (remote stores), one cluster
+//    barrier, and each owner merges its slice in rank order locally.
+//  * f32 pages keep the dense kernel's paged path (PAGED = true: the table
+//    staged per CTA, a keep-bit pass through it), split over the table's
+//    slots.
+// Nothing is atomic and the merges run in a fixed order, so two calls give
+// the same bits, and a lane's output depends on its own row, position and
+// pages only.
+
 // Per-lane positions (the dense entry with lanes = 1): pos (B,) and kv_pos
 // (B, cap), lane b reading pos[b] and row b of kv_pos, for caches whose
 // lanes sit at different positions (the serving engine's reserved lanes
@@ -677,8 +711,9 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kp = static_cast<const int*>(kv_pos);
   const int* p = static_cast<const int*>(pos);
-  if (dtype == kBF16)
-    return (int)dispatch_hd<__nv_bfloat16, PAGED>(hd, q, k, v, kp, p, o, B,
+  // bf16 pages take decode_paged_kernel
+  if (dtype == kBF16 && !PAGED)
+    return (int)dispatch_hd<__nv_bfloat16, false>(hd, q, k, v, kp, p, o, B,
                                                   cap, Hq, Hkv, window,
                                                   softcap, chunk, nclu, pg, s);
   if (dtype == kF32)
@@ -686,6 +721,524 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
                                           Hkv, window, softcap, chunk, nclu,
                                           pg, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The paged entry in bf16: decode_paged_kernel (see the note at the top)
+
+// Measurement probes (tools/k1p_breakdown.py builds copies of this file with
+// -DK1P_PROBE=n; 0, the default, is the kernel): 1 returns at once, 2 after
+// the prologue, 3 waits for each tile's copies and computes nothing, 4 ends
+// after the warps' merge without the cluster's, 5 leaves out p.v's
+// products, 6 the scores' products.  The probes write wrong values on
+// purpose.
+#ifndef K1P_PROBE
+#define K1P_PROBE 0
+#endif
+
+constexpr int TILE = 16;              // slots a warp takes at a time
+constexpr int INVALID_POS = 1 << 30;  // kv_pos of a slot no page maps
+
+// 4-byte asynchronous copy global -> shared (one kv_pos)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the cluster barrier in two halves: arrive (release, or relaxed) and wait
+// (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the transpose of an 8x8 b16 matrix held as an mma fragment (lane l: row
+// l/4, cols 2(l%4), +1), in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+template <int HD>
+struct PagedCfg {
+  using T = __nv_bfloat16;
+  static constexpr int CH = HD / 8;                   // 16-byte chunks a row
+  static constexpr int SWZ = (CH < 8 ? CH : 8) - 1;   // chunk swizzle mask
+  static constexpr int NST = 2;                       // tiles in flight a warp
+  static constexpr bool QREG = HD <= 128;             // q fragments in registers
+  static constexpr int PWS = HD + 4;     // row stride of a warp's partial
+  static constexpr size_t STAGE = 2 * TILE * HD * sizeof(T);   // k and v rows
+  static constexpr size_t RING = (size_t)NW * NST * STAGE;
+  static constexpr size_t KVP = sizeof(int) * NW * NST * TILE;
+  static constexpr size_t QS = QREG ? 0 : sizeof(T) * GMAX * HD;
+  static constexpr size_t MISC = sizeof(float) * 2 * NW * GMAX;
+  // the cluster merge: each peer's (m, l) of every row and its part of
+  // this CTA's slice of the output
+  static constexpr size_t RECV =
+      sizeof(float) * (2 * MAX_CLUSTER * GMAX + GMAX * HD + 4 * MAX_CLUSTER);
+  static constexpr size_t SMEM =
+      RING + KVP + QS + MISC + RECV + sizeof(int) * BT_STAGE;
+  static_assert(sizeof(float) * GMAX * PWS <= NST * STAGE,
+                "a warp's partial fits its own ring");
+  static_assert(HD > 128 || SMEM <= 113 * 1024, "two CTAs per SM");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one CTA");
+};
+
+// grid (nclu, Hkv, B); CTA r of (lane b, kv head hk) takes the pages
+// [r * ppc, (r + 1) * ppc) of the lane's table row, its warp w the 16-slot
+// tiles w, w + 4, ... of them.  PS > 0 fixes the page size; PS = 0 reads it.
+template <int HD, int PS>
+__global__ void __launch_bounds__(NT)
+decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ kv_pos,
+                    const int* __restrict__ bt,
+                    const int* __restrict__ pos_ptr,
+                    __nv_bfloat16* __restrict__ o, int max_blocks, int ps_rt,
+                    int Hq, int Hkv, int window, float softcap, float scale,
+                    int ppc, long long kv_pstride, long long pos_pstride) {
+  using T = __nv_bfloat16;
+  using C = PagedCfg<HD>;
+  constexpr int CH = C::CH, SWZ = C::SWZ, NST = C::NST;
+  constexpr int KD = HD / 16;                    // k-steps of k.q
+  constexpr int MD = HD / 16;                    // 16-row (dim) tiles of p.v
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);          // [NW][NST][k|v][TILE][HD]
+  int* kvp_s = reinterpret_cast<int*>(smem + C::RING);     // [NW][NST][TILE]
+  T* q_s = reinterpret_cast<T*>(smem + C::RING + C::KVP);  // [GMAX][HD]
+  float* mw_s = reinterpret_cast<float*>(smem + C::RING + C::KVP + C::QS);
+  float* lw_s = mw_s + NW * GMAX;                // [NW][GMAX] warps' (m, l)
+  float* rml_s = lw_s + NW * GMAX;               // [MAX_CLUSTER][m|l][GMAX]
+  float* racc_s = rml_s + 2 * MAX_CLUSTER * GMAX;   // [peer][slice] float4
+  int* bt_s = reinterpret_cast<int*>(racc_s + GMAX * HD + 4 * MAX_CLUSTER);
+
+  if constexpr (K1P_PROBE == 1) return;
+  // a peer may write this CTA's shared memory only once every CTA of the
+  // cluster runs: arrive now, wait before the first remote store
+  if (gridDim.x > 1) cluster_arrive_relaxed();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x, nclu = gridDim.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int ps = PS > 0 ? PS : ps_rt;
+  T* const ob = o + ((size_t)b * Hq + hk * G) * HD;
+
+  // ---- prologue, one round trip: the position, the lane's first table
+  // entry (inactive when < 0), this CTA's table entries and q
+  const int* row = bt + (size_t)b * max_blocks;
+  const int lp0 = rank * ppc;
+  const int npg = max(0, min(max_blocks - lp0, ppc));
+  const int pos = pos_ptr[b];
+  const bool live = row[0] >= 0;
+  const int bt0 = tid < npg ? row[lp0 + tid] : -1;   // stored after q's loads
+  const T* qb = q + ((size_t)b * Hq + hk * G) * HD;
+  // q as the B operand of the scores (k = dims, n = heads): lane (g, t)
+  // holds head g (+8) at dims 2t, 2t+1 (+8) of each k-step
+  const int NG = G > 8 ? 2 : 1;                  // 8-head n-tiles
+  uint32_t qf[C::QREG ? KD : 1][2][2];
+  if constexpr (C::QREG) {
+    auto ld = [&](int r, int col) -> uint32_t {
+      return r < G ? *reinterpret_cast<const uint32_t*>(qb + r * HD + col)
+                   : 0u;
+    };
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        qf[kk][nt][0] = ld(g + 8 * nt, kk * 16 + 2 * t);
+        qf[kk][nt][1] = ld(g + 8 * nt, kk * 16 + 2 * t + 8);
+      }
+  } else {
+    for (int i = tid; i < GMAX * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < G) val = *reinterpret_cast<const uint4*>(qb + r * HD + c * 8);
+      *reinterpret_cast<uint4*>(q_s + r * HD + (c ^ (r & SWZ)) * 8) = val;
+    }
+  }
+  if (tid < npg) bt_s[tid] = bt0;
+  for (int i = tid + NT; i < npg; i += NT) bt_s[i] = row[lp0 + i];
+  __syncthreads();
+  if constexpr (K1P_PROBE == 2) {
+    if (tid == 0) ob[rank] = from_f<T>((float)(bt_s[0] + pos) + to_f(qb[0]));
+    return;
+  }
+
+  // ---- the walk: each warp on its own tiles, NST of them in flight, with
+  // no barrier across warps.  A tile is loaded when any of its pages is
+  // mapped (the table alone decides); its slots' kv_pos come in the same
+  // copies as k and v, and mask after the wait.  Slots of unmapped pages
+  // (and past the CTA's pages) are zero-filled without a read and get
+  // kv_pos INVALID_POS.
+  const int nslot = npg * ps;
+  const int ntiles = live ? (nslot + TILE - 1) / TILE : 0;
+  auto tile_live = [&](int c) {
+    const int z = (min(nslot, (c + 1) * TILE) - 1) / ps;
+    for (int p = c * TILE / ps; p <= z; ++p)
+      if (bt_s[p] >= 0) return true;
+    return false;
+  };
+  auto next_live = [&](int c) {
+    for (; c < ntiles && !tile_live(c); c += NW) {
+    }
+    return c;
+  };
+  T* const wring = ring + (size_t)warp * NST * 2 * TILE * HD;
+  int* const wkvp = kvp_s + warp * NST * TILE;
+  auto load_tile = [&](int c, int st) {
+    T* ks = wring + (size_t)st * 2 * TILE * HD;
+    T* vs = ks + TILE * HD;
+    const int j0 = c * TILE;
+#pragma unroll
+    for (int i = 0; i < TILE * CH / 32; ++i) {
+      const int idx = lane + 32 * i, r = idx / CH, cc = idx % CH;
+      const int j = j0 + r;
+      const int phys = j < nslot ? bt_s[j / ps] : -1;
+      const size_t off =
+          phys >= 0 ? (size_t)phys * kv_pstride +
+                          ((size_t)(j % ps) * Hkv + hk) * HD + cc * 8
+                    : 0;
+      const int dst = r * HD + (cc ^ (r & SWZ)) * 8;
+      cp_async16(ks + dst, k + off, phys < 0);
+      cp_async16(vs + dst, v + off, phys < 0);
+    }
+    if (lane < TILE) {
+      const int j = j0 + lane;
+      const int phys = j < nslot ? bt_s[j / ps] : -1;
+      if (phys >= 0)
+        cp_async4(wkvp + st * TILE + lane,
+                  kv_pos + (size_t)phys * pos_pstride + j % ps);
+      else
+        wkvp[st * TILE + lane] = INVALID_POS;
+    }
+  };
+
+  // per head (n-tile nt, cols 2t + i): running max and sum; acc holds
+  // o^T (rows: dims g, g+8 of each 16-dim tile; cols: the heads)
+  float m_r[2][2], l_r[2][2];
+  float acc[MD][2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_r[nt][i] = -INFINITY;
+      l_r[nt][i] = 0.f;
+    }
+#pragma unroll
+  for (int md = 0; md < MD; ++md)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[md][nt][e] = 0.f;
+  int fetch = next_live(warp);
+#pragma unroll
+  for (int st = 0; st < NST; ++st) {
+    if (fetch < ntiles) {
+      load_tile(fetch, st);
+      fetch = next_live(fetch + NW);
+    }
+    cp_async_commit();
+  }
+  int stage = 0;
+  for (int cur = next_live(warp); cur < ntiles; cur = next_live(cur + NW)) {
+    cp_async_wait<NST - 1>();
+    __syncwarp();
+    const T* ks = wring + (size_t)stage * 2 * TILE * HD;
+    const T* vs = ks + TILE * HD;
+    const int* kp = wkvp + stage * TILE;
+    if constexpr (K1P_PROBE != 3) {
+      // scores S^T[16 slots][heads] = k.q^T: the tile's k rows are the A
+      // operand (one ldmatrix.x4 a k-step), the heads the n axis, so G = 8
+      // fills the product; the k-steps alternate two accumulators
+      float s[2][4], s2[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD && K1P_PROBE != 6; ++kk) {
+        uint32_t af[4];
+        const int r = (lane & 7) + 8 * ((lane >> 3) & 1);
+        const int c = 2 * kk + (lane >> 4);
+        ldmatrix_x4(af, ks + r * HD + (c ^ (r & SWZ)) * 8);
+        uint32_t qb2[2][2];
+        if constexpr (C::QREG) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            qb2[nt][0] = qf[kk][nt][0];
+            qb2[nt][1] = qf[kk][nt][1];
+          }
+        } else {
+          uint32_t x4[4];
+          const int qr = (lane & 7) + 8 * (lane >> 4);
+          const int qc = 2 * kk + ((lane >> 3) & 1);
+          ldmatrix_x4(x4, q_s + qr * HD + (qc ^ (qr & SWZ)) * 8);
+          qb2[0][0] = x4[0];
+          qb2[0][1] = x4[1];
+          qb2[1][0] = x4[2];
+          qb2[1][1] = x4[3];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (nt < NG) mma_16816(kk & 1 ? s2[nt] : s[nt], af, qb2[nt]);
+      }
+      // mask by kv_pos (rows: slots g and g+8), then this tile's online
+      // softmax per head (cols), reduced over the slots across g
+      const int kp0 = kp[g], kp1 = kp[g + 8];
+      const bool keep0 = kp0 <= pos && (window <= 0 || pos - kp0 < window);
+      const bool keep1 = kp1 <= pos && (window <= 0 || pos - kp1 < window);
+      uint32_t pb[2][2];       // p^T as p.v's B operand (k = slots, n = heads)
+      float alpha[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (nt >= NG) continue;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float xx = (s[nt][e] + s2[nt][e]) * scale;
+          if (softcap > 0.f) xx = softcap * tanhf(xx / softcap);
+          x[e] = (e < 2 ? keep0 : keep1) ? xx : -INFINITY;
+        }
+        float p[4], msafe[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float bm = fmaxf(x[i], x[i + 2]);
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 4));
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 8));
+          bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 16));
+          const float mnew = fmaxf(m_r[nt][i], bm);
+          msafe[i] = mnew == -INFINITY ? 0.f : mnew;
+          alpha[nt][i] = expf(m_r[nt][i] - msafe[i]);
+          m_r[nt][i] = mnew;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = expf(x[e] - msafe[e & 1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float rs = p[i] + p[i + 2];
+          rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+          l_r[nt][i] = l_r[nt][i] * alpha[nt][i] + rs;
+        }
+        // p rounded to bf16 (as the plain version does); the 8x8 blocks
+        // (slots 0-7 | 8-15, heads) transposed into B fragments
+        pb[nt][0] = movmatrix_trans(pack_bf16(p[0], p[1]));
+        pb[nt][1] = movmatrix_trans(pack_bf16(p[2], p[3]));
+      }
+      // o^T += v^T.p^T: v's rows are the A operand through ldmatrix.trans
+#pragma unroll
+      for (int md = 0; md < MD && K1P_PROBE != 5; ++md) {
+        const int r = (lane & 7) + 8 * (lane >> 4);
+        const int c = 2 * md + ((lane >> 3) & 1);
+        uint32_t af[4];
+        ldmatrix_x4_trans(af, vs + r * HD + (c ^ (r & SWZ)) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          if (nt >= NG) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[md][nt][e] *= alpha[nt][e & 1];
+          mma_16816(acc[md][nt], af, pb[nt]);
+        }
+      }
+    } else {
+      if (lane == 0) l_r[0][0] += to_f(ks[0]) + to_f(vs[0]) + (float)kp[0];
+    }
+    __syncwarp();   // the stage is consumed before it is refilled
+    if (fetch < ntiles) {
+      load_tile(fetch, stage);
+      fetch = next_live(fetch + NW);
+    }
+    cp_async_commit();
+    stage = (stage + 1) % NST;
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // ---- this warp's partial into its own (drained) ring, its (m, l) beside
+  float* const pw = reinterpret_cast<float*>(wring);   // [GMAX][PWS]
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int head = 8 * nt + 2 * t + i;
+      if (head >= G) continue;
+#pragma unroll
+      for (int md = 0; md < MD; ++md) {
+        pw[head * C::PWS + md * 16 + g] = acc[md][nt][i];
+        pw[head * C::PWS + md * 16 + g + 8] = acc[md][nt][i + 2];
+      }
+      if (g == 0) {
+        mw_s[warp * GMAX + head] = m_r[nt][i];
+        lw_s[warp * GMAX + head] = l_r[nt][i];
+      }
+    }
+  __syncthreads();
+
+  // ---- the warps' merge, in warp order.  One CTA (no cluster): it is the
+  // output.  In a cluster, each CTA owns a slice of the output: the merged
+  // float4s go to their owners' shared memory (remote stores, not waited
+  // on), each row's (m, l) to every peer, then one cluster barrier, and
+  // each owner merges the peers' parts of its slice in rank order from its
+  // own shared memory
+  const int E4 = G * HD / 4;
+  const int per = (E4 + nclu - 1) / nclu;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (nclu > 1) cluster_wait();
+  for (int e = tid; e < E4; e += NT) {
+    const int gg = (4 * e) / HD, d = (4 * e) % HD;
+    float mw[NW], M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      mw[w] = mw_s[w * GMAX + gg];
+      M = fmaxf(M, mw[w]);
+    }
+    const float Ms = M == -INFINITY ? 0.f : M;
+    float L = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (mw[w] == -INFINITY) continue;
+      const float wt = expf(mw[w] - Ms);
+      L = fmaf(wt, lw_s[w * GMAX + gg], L);
+      const float4 a = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(ring + (size_t)w * NST * 2 * TILE * HD) +
+          gg * C::PWS + d);
+      sum.x = fmaf(wt, a.x, sum.x);
+      sum.y = fmaf(wt, a.y, sum.y);
+      sum.z = fmaf(wt, a.z, sum.z);
+      sum.w = fmaf(wt, a.w, sum.w);
+    }
+    if (nclu == 1 || K1P_PROBE == 4) {
+      const float inv = L > 0.f ? 1.f / L : 0.f;
+      *reinterpret_cast<uint2*>(ob + gg * HD + d) =
+          make_uint2(pack_bf16(sum.x * inv, sum.y * inv),
+                     pack_bf16(sum.z * inv, sum.w * inv));
+    } else {
+      const int own = e / per;
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(
+          racc_s + 4 * (rank * per + e - own * per), own)) = sum;
+      if (d == 0)
+        for (int p = 0; p < nclu; ++p) {
+          *cluster.map_shared_rank(rml_s + rank * 2 * GMAX + gg, p) = M;
+          *cluster.map_shared_rank(rml_s + rank * 2 * GMAX + GMAX + gg, p) =
+              L;
+        }
+    }
+  }
+  if (nclu == 1 || K1P_PROBE == 4) return;
+  cluster_arrive();
+  cluster_wait();
+  const int e_end = min(E4, (rank + 1) * per);
+  for (int e = rank * per + tid; e < e_end; e += NT) {
+    const int gg = (4 * e) / HD, d = (4 * e) % HD;
+    float mp[MAX_CLUSTER], M = -INFINITY;
+#pragma unroll
+    for (int p = 0; p < MAX_CLUSTER; ++p) {
+      mp[p] = p < nclu ? rml_s[p * 2 * GMAX + gg] : -INFINITY;
+      M = fmaxf(M, mp[p]);
+    }
+    const float Ms = M == -INFINITY ? 0.f : M;
+    float L = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < MAX_CLUSTER; ++p) {
+      if (mp[p] == -INFINITY) continue;
+      const float w = expf(mp[p] - Ms);
+      L = fmaf(w, rml_s[p * 2 * GMAX + GMAX + gg], L);
+      const float4 a = *reinterpret_cast<const float4*>(
+          racc_s + 4 * (p * per + e - rank * per));
+      sum.x = fmaf(w, a.x, sum.x);
+      sum.y = fmaf(w, a.y, sum.y);
+      sum.z = fmaf(w, a.z, sum.z);
+      sum.w = fmaf(w, a.w, sum.w);
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    *reinterpret_cast<uint2*>(ob + gg * HD + d) =
+        make_uint2(pack_bf16(sum.x * inv, sum.y * inv),
+                   pack_bf16(sum.z * inv, sum.w * inv));
+  }
+}
+
+template <int HD, int PS>
+cudaError_t launch_paged(const void* q, const void* k, const void* v,
+                         const int* kv_pos, const int* bt, const int* pos,
+                         void* o, int B, int max_blocks, int ps, int Hq,
+                         int Hkv, int window, float softcap, int ppc,
+                         int nclu, long long kv_pstride,
+                         long long pos_pstride, cudaStream_t stream) {
+  using C = PagedCfg<HD>;
+  using T = __nv_bfloat16;
+  auto kern = decode_paged_kernel<HD, PS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err == cudaSuccess && nclu > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nclu, Hkv, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nclu;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nclu > 1 ? 1 : 0;   // one CTA: no cluster
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           kv_pos, bt, pos, static_cast<T*>(o), max_blocks,
+                           ps, Hq, Hkv, window, softcap,
+                           1.0f / sqrtf((float)HD), ppc, kv_pstride,
+                           pos_pstride);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_ps(int ps, const void* q, const void* k, const void* v,
+                        const int* kv_pos, const int* bt, const int* pos,
+                        void* o, int B, int max_blocks, int Hq, int Hkv,
+                        int window, float softcap, int ppc, int nclu,
+                        long long kv_pstride, long long pos_pstride,
+                        cudaStream_t s) {
+  switch (ps) {
+    case 1: return launch_paged<HD, 1>(q, k, v, kv_pos, bt, pos, o, B, max_blocks, ps, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 4: return launch_paged<HD, 4>(q, k, v, kv_pos, bt, pos, o, B, max_blocks, ps, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 16: return launch_paged<HD, 16>(q, k, v, kv_pos, bt, pos, o, B, max_blocks, ps, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    default: return launch_paged<HD, 0>(q, k, v, kv_pos, bt, pos, o, B, max_blocks, ps, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+  }
+}
+
+cudaError_t dispatch_paged(int hd, const void* q, const void* k,
+                           const void* v, const int* kv_pos, const int* bt,
+                           const int* pos, void* o, int B, int max_blocks,
+                           int ps, int Hq, int Hkv, int window, float softcap,
+                           int ppc, int nclu, long long kv_pstride,
+                           long long pos_pstride, cudaStream_t s) {
+  switch (hd) {
+    case 16: return dispatch_ps<16>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 32: return dispatch_ps<32>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 64: return dispatch_ps<64>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 128: return dispatch_ps<128>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 256: return dispatch_ps<256>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -712,18 +1265,36 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
 // The paged entry: q (B,1,Hq,hd) and o contiguous; k_pool/v_pool
 // (NP, ps, Hkv, hd) and kv_pos_pool (NP, ps) contiguous within a page, pages
 // kv_pstride / pos_pstride elements apart; block_table (B, max_blocks) and
-// pos (B,) int32.  chunk and nclu come from split_plan over the logical cap
-// max_blocks * ps, and a CTA's pages must fit BT_STAGE:
-// (chunk - 1) / ps + 2 <= BT_STAGE.
+// pos (B,) int32.  chunk (slots per CTA) and nclu come from ops.py:
+// paged_plan.  bf16: chunk is whole pages (ppc = chunk / ps <= BT_STAGE,
+// (nclu - 1) * ppc < max_blocks <= nclu * ppc), nclu = 1 launches no
+// cluster.  f32: split_plan over the logical cap max_blocks * ps, and a
+// CTA's pages must fit BT_STAGE: (chunk - 1) / ps + 2 <= BT_STAGE.
 extern "C" int decode_attention_paged_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const void* kv_pos_pool, const void* block_table, const void* pos,
     void* o, int dtype, int B, int max_blocks, int ps, int Hq, int Hkv,
     int hd, long long kv_pstride, long long pos_pstride, int window,
     float softcap, int chunk, int nclu, void* stream) {
-  if (max_blocks <= 0 || ps <= 0 || (chunk - 1) / ps + 2 > BT_STAGE ||
-      kv_pstride < (long long)ps * Hkv * hd || pos_pstride < ps)
+  if (max_blocks <= 0 || ps <= 0 || kv_pstride < (long long)ps * Hkv * hd ||
+      pos_pstride < ps)
     return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    const int ppc = chunk / ps;
+    if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > GMAX ||
+        chunk <= 0 || chunk % ps || ppc > BT_STAGE || nclu < 1 ||
+        nclu > MAX_CLUSTER || (long long)(nclu - 1) * ppc >= max_blocks ||
+        (long long)nclu * ppc < max_blocks)
+      return (int)cudaErrorInvalidValue;
+    return (int)dispatch_paged(hd, q, k_pool, v_pool,
+                               static_cast<const int*>(kv_pos_pool),
+                               static_cast<const int*>(block_table),
+                               static_cast<const int*>(pos), o, B,
+                               max_blocks, ps, Hq, Hkv, window, softcap, ppc,
+                               nclu, kv_pstride, pos_pstride,
+                               static_cast<cudaStream_t>(stream));
+  }
+  if ((chunk - 1) / ps + 2 > BT_STAGE) return (int)cudaErrorInvalidValue;
   return dispatch<true>(dtype, hd, q, k_pool, v_pool, kv_pos_pool, pos, o, B,
                         max_blocks * ps, Hq, Hkv, window, softcap, chunk, nclu,
                         PagedArgs{static_cast<const int*>(block_table),

@@ -8,17 +8,20 @@ The kernel splits each (lane, kv head)'s cache across the CTAs of one
 thread-block cluster and merges their partial softmaxes in the same launch;
 ``split_plan`` chooses the split here, in Python, so the CPU tests reach it.
 
-``decode_attention_paged`` is the serving engine's entry: the same kernel
-reading each lane's pages in place through its block-table row, with its
-own plain version (``decode_attention_paged_ref``) and its own count,
+``decode_attention_paged`` is the serving engine's entry: it reads each
+lane's pages in place through its block-table row, with its own plain
+version (``decode_attention_paged_ref``) and its own count,
 ``decode_attention_paged.launches``; ``decode_attention_paged.launches_b1``
 counts apart those of its launches that take one lane (B 1, the prefix
-cache's ``prefill_chunk``).
+cache's ``prefill_chunk``).  In bf16 it launches its own kernel
+(``decode_paged_kernel``), which splits a lane's table by whole pages;
+``paged_plan`` chooses the route and the split from static shapes only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,6 +37,11 @@ MAX_CLUSTER = 16    # csrc/decode_attention.cu: MAX_CLUSTER (non-portable > 8)
 CHUNK_GRANULE = 64  # csrc/decode_attention.cu: CHUNK_GRANULE (whole blocks)
 MAX_CHUNK = 32768   # csrc/decode_attention.cu: MAX_CHUNK (one keep bit a slot)
 BT_STAGE = 1024     # csrc/decode_attention.cu: BT_STAGE (table entries a CTA)
+TILE = 16           # csrc/decode_attention.cu: TILE (slots a warp takes at once)
+# a table of at most this many tiles (two a warp) takes one CTA and no
+# cluster per (lane, kv head): tools/k1p_breakdown.py timed both routes at
+# 5 tiles (one CTA faster), 11 and 36 (a cluster faster)
+SINGLE_TILES = 8
 _ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P)
 _L = ctypes.c_longlong
 _PAGED_ARGTYPES = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, _L, _L, I, F,
@@ -55,6 +63,44 @@ def split_plan(B: int, Hkv: int, cap: int, sm_count: int):
         raise ValueError(f"decode_attention: cap {cap} needs {chunk} slots "
                          f"per CTA (max {MAX_CHUNK})")
     return chunk, -(-cap // chunk)
+
+
+def paged_plan(B: int, Hkv: int, max_blocks: int, ps: int,
+               dtype: torch.dtype, sm_count: int):
+    """(route, chunk, cluster) of the paged entry, from static shapes only
+    (never from positions or table contents), so an engine program always
+    takes the same route.  CTA r of the cluster of one (lane, kv head)
+    takes the table's slots [r * chunk, (r + 1) * chunk).
+
+    bf16 (``decode_paged_kernel``): whole pages, ``chunk = ppc * ps``.
+    ``"single"``: a table of at most ``SINGLE_TILES`` tiles of ``TILE``
+    slots, or a batch that fills the card, takes one CTA and no cluster;
+    ``"cluster"``: otherwise the B * Hkv clusters cover ``sm_count`` SMs
+    (at most ``MAX_CLUSTER`` CTAs of whole pages, a multiple of
+    ``CHUNK_GRANULE`` slots each).  A CTA stages at most
+    ``BT_STAGE`` table entries.  f32 (``"slots"``): ``split_plan`` over the
+    table's slots."""
+    if dtype != torch.bfloat16:
+        chunk, cluster = split_plan(B, Hkv, max_blocks * ps, sm_count)
+        if (chunk - 1) // ps + 2 > BT_STAGE:
+            raise ValueError(f"decode_attention_paged: {chunk} slots per CTA "
+                             f"span more than {BT_STAGE} pages of {ps}")
+        return "slots", chunk, cluster
+    # whole pages of CHUNK_GRANULE slots (a tile for each of the 4 warps)
+    gran = CHUNK_GRANULE // math.gcd(ps, CHUNK_GRANULE)
+    want = -(-sm_count // (B * Hkv))
+    cluster = 1
+    if -(-max_blocks * ps // TILE) > SINGLE_TILES:
+        cluster = max(1, min(MAX_CLUSTER, want, -(-max_blocks // gran)))
+    cluster = max(cluster, -(-max_blocks // BT_STAGE))
+    ppc = -(-max_blocks // cluster)
+    if cluster > 1:
+        ppc = -(-ppc // gran) * gran
+    cluster = -(-max_blocks // ppc)
+    if cluster > MAX_CLUSTER:
+        raise ValueError(f"decode_attention_paged: a table of {max_blocks} "
+                         f"pages needs more than {MAX_CLUSTER} CTAs")
+    return ("single" if cluster == 1 else "cluster"), ppc * ps, cluster
 
 
 def sm_count(device: torch.device) -> int:
@@ -203,10 +249,8 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
             raise TypeError(f"decode_attention_paged: {name} has dtype "
                             f"{t.dtype}, expected {q.dtype}")
     max_blocks = block_table.shape[1]
-    chunk, cluster = split_plan(B, Hkv, max_blocks * ps, sm_count(q.device))
-    if (chunk - 1) // ps + 2 > BT_STAGE:
-        raise ValueError(f"decode_attention_paged: {chunk} slots per CTA "
-                         f"span more than {BT_STAGE} pages of {ps}")
+    _, chunk, cluster = paged_plan(B, Hkv, max_blocks, ps, q.dtype,
+                                   sm_count(q.device))
     out = torch.empty_like(q)
     fn = build.load("decode_attention", "decode_attention_paged_fwd",
                     _PAGED_ARGTYPES)

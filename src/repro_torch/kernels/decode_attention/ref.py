@@ -9,7 +9,9 @@ cluster in rank order); only tests use it, never the main path.
 ``decode_attention_paged_ref`` is the plain version of the paged entry:
 each lane's pages gathered through its block-table row (``gather_pages``,
 the primitive under ``serve/kvcache.py:gather_lane_cache``), then
-``sdpa_naive``.
+``sdpa_naive``.  ``decode_attention_paged_split_ref`` mirrors the bf16
+paged kernel's split (pages per CTA, tiles per warp) and merge order, for
+the tests only.
 """
 
 from __future__ import annotations
@@ -145,3 +147,81 @@ def decode_attention_split_ref(q, k, v, pos, kv_pos, *, chunk: int,
     out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None],
                       0.0)
     return out.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+def decode_attention_paged_split_ref(q, k_pool, v_pool, kv_pos_pool,
+                                     block_table, pos, *, chunk: int,
+                                     cluster: int, window: int = 0,
+                                     softcap: float = 0.0, tile: int = 16,
+                                     warps: int = 4):
+    """The bf16 paged kernel's arithmetic in f32 (``paged_plan``'s
+    ``chunk`` and ``cluster``): CTA r of a (lane, kv head) takes the pages
+    [r * ppc, (r + 1) * ppc) of the lane's row (ppc = chunk / ps); its warp
+    w the ``tile``-slot tiles w, w + ``warps``, ... of them, a tile read
+    when any of its pages is mapped.  Each warp keeps its own (m, l, acc)
+    over its tiles (online softmax per tile, masked by kv_pos, p rounded to
+    q's dtype before p.v); the warps merge in warp order into the CTA's
+    partial, the CTAs in rank order, each with weight exp(m - max m), 0 for
+    m = -inf.  A lane with block_table[b, 0] < 0 reads nothing: zeros."""
+    B, _, Hq, hd = q.shape
+    ps, Hkv = k_pool.shape[1], k_pool.shape[2]
+    G, mb = Hq // Hkv, block_table.shape[1]
+    ppc = chunk // ps
+    f32, inf = torch.float32, float("inf")
+
+    def merge(parts):                   # [(m, l, acc)] in order
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        Ms = torch.where(M == -inf, 0.0, M)
+        L, O = torch.zeros_like(M), torch.zeros_like(parts[0][2])
+        for m, l, acc in parts:
+            w = torch.where(m == -inf, 0.0, torch.exp(m - Ms))
+            L = L + w * l
+            O = O + w[..., None] * acc
+        return M, L, O
+
+    outs = []
+    for b in range(B):
+        row = block_table[b]
+        k, v, kv_pos = gather_lane(k_pool, v_pool, kv_pos_pool, row)
+        k, v = k[0].to(f32), v[0].to(f32)          # (cap, Hkv, hd)
+        p = int(pos[b])
+        keep = kv_pos <= p
+        if window:
+            keep &= p - kv_pos < window
+        qg = q[b, 0].reshape(Hkv, G, hd).to(f32)
+        ctas = []
+        for r in range(cluster):
+            lp0 = r * ppc
+            nslot = max(0, min(mb - lp0, ppc)) * ps
+            ntiles = -(-nslot // tile) if int(row[0]) >= 0 else 0
+            parts = []
+            for w in range(warps):
+                m = torch.full((Hkv, G), -inf, dtype=f32)
+                l = torch.zeros((Hkv, G), dtype=f32)
+                acc = torch.zeros((Hkv, G, hd), dtype=f32)
+                for c in range(w, ntiles, warps):
+                    j0 = lp0 * ps + c * tile
+                    j1 = lp0 * ps + min(nslot, (c + 1) * tile)
+                    if not bool((row[j0 // ps:(j1 - 1) // ps + 1] >= 0)
+                                .any()):        # never loaded
+                        continue
+                    s = torch.einsum("kgh,nkh->kgn", qg, k[j0:j1]) \
+                        * hd ** -0.5
+                    if softcap:
+                        s = softcap * torch.tanh(s / softcap)
+                    s = s.masked_fill(~keep[j0:j1], -inf)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    m_safe = torch.where(m_new == -inf, 0.0, m_new)
+                    alpha = torch.exp(m - m_safe)
+                    pr = torch.exp(s - m_safe[..., None])
+                    l = l * alpha + pr.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "kgn,nkh->kgh", pr.to(q.dtype).to(f32), v[j0:j1])
+                    m = m_new
+                parts.append((m, l, acc))
+            ctas.append(merge(parts))
+        _, L, O = merge(ctas)
+        out = torch.where(L[..., None] > 0,
+                          O / L.clamp_min(1e-30)[..., None], 0.0)
+        outs.append(out.reshape(1, 1, Hq, hd))
+    return torch.cat(outs).to(q.dtype)

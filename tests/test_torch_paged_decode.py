@@ -4,10 +4,13 @@ its own pages in place through its block-table row.
 On the CPU the wrapper runs its plain version (gather through the row +
 ``sdpa_naive``), checked here against a dense decode over an explicitly
 gathered cache.  On the card (``gpu`` cases) the CUDA kernel is held
-against the plain version at page sizes 4 and 16, with unmapped tails,
-inactive lanes, ragged positions, positions on a page boundary and past
-the mapped span, and pools that are one layer's strided view of a stacked
-pool.  Tolerances as ``tests/test_torch_kernels.py`` holds the dense
+against the plain version on both bf16 routes (one CTA, a cluster) at
+page sizes 1, 4, 16 and one with no instantiation of its own (5), at the
+serving engine's decode, ``prefill_chunk`` and verify shapes, with
+unmapped tails, inactive lanes, ragged positions, positions on a page
+boundary and past the mapped span, and pools that are one layer's strided
+view of a stacked pool; and a lane's output keeps its bits when the other
+lanes change.  Tolerances as ``tests/test_torch_kernels.py`` holds the dense
 entry: |kernel - plain| <= 2e-2 * |plain| + 1e-4 (f32) or 2e-2 (bf16).
 """
 
@@ -17,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
-    decode_attention_paged)
+    decode_attention_paged, paged_plan)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_paged_ref, decode_attention_ref)
 
@@ -105,7 +108,36 @@ PAGED_CASES = {
     "past_span": (3, 16, 8, 32, 16, 2, 128, [127, 300, 4000], (), 1, 0),
     "ps16_window": (2, 16, 20, 48, 16, 1, 256, [250, 319], (), 1, 100),
     "ps1": (2, 1, 64, 160, 4, 4, 16, [63, 40], (), 1, 0),
+    # prefill_chunk at one lane (one CTA a (lane, kv head)) and verify's
+    # first window (3-CTA clusters): chip_smoke.py's chunk_b1 and verify_w0
+    "chunk_b1": (1, 16, 5, 40, 32, 4, 128, [53], (), 2, 0),
+    "verify_w0": (8, 16, 11, 88, 32, 4, 128,
+                  [157, 142, 129, 174, 131, 136, 150, 166], (), 2, 0),
+    # the other route at each page size the kernel fixes, and both at one
+    # it does not
+    "ps16_window_single": (2, 16, 8, 24, 16, 1, 256, [100, 127], (), 1,
+                           100),
+    "ps4_cluster": (2, 4, 100, 220, 8, 2, 64, [399, 250], (1,), 1, 0),
+    "ps1_cluster": (2, 1, 300, 700, 4, 4, 16, [299, 150], (), 1, 0),
+    "ps5_generic": (3, 5, 10, 40, 16, 2, 128, [49, 20, 0], (), 1, 0),
+    "ps5_generic_cluster": (2, 5, 140, 260, 16, 2, 128, [699, 500], (), 2,
+                            0),
+    # prefill_chunk's table width at several lanes: one CTA each
+    "chunk_b1_lanes": (4, 16, 5, 40, 32, 4, 128, [53, 79, 16, 40], (), 2,
+                       0),
 }
+H100_SMS = 132
+
+
+def test_paged_cases_cover_every_route_and_page_size():
+    """The bf16 cases below take both routes at page sizes 1, 4, 16 and at
+    one that is read at run time (the plan as on the H100's 132 SMs)."""
+    seen = set()
+    for B, ps, mb, _, _, Hkv, *_ in PAGED_CASES.values():
+        route = paged_plan(B, Hkv, mb, ps, torch.bfloat16, H100_SMS)[0]
+        seen.add((route, ps if ps in (1, 4, 16) else "generic"))
+    assert seen == {(r, p) for r in ("single", "cluster")
+                    for p in (1, 4, 16, "generic")}
 
 
 @pytest.mark.gpu
@@ -141,3 +173,33 @@ def test_paged_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):     # a page must be contiguous
         decode_attention_paged(q, k[:, 0].transpose(1, 2), v[:, 0],
                                kvp[:, 0], bt, posv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ps16_ragged", "chunk_b1_lanes"])
+def test_paged_lane_keeps_its_bits_when_other_lanes_change(cuda, case):
+    """Lane 0's output has the same bits when the other lanes' positions,
+    pages and contents change (each route: a cluster, one CTA)."""
+    B, ps, mb, NP, Hq, Hkv, hd, pos, _, _, _ = PAGED_CASES[case]
+    q, k, v, kvp, bt, posv = paged_case(B, ps, mb, NP + 40, Hq, Hkv, hd, pos,
+                                        "bfloat16")
+    a = decode_attention_paged(*(t.to(cuda) for t in (
+        q, k[:, 0], v[:, 0], kvp[:, 0], bt, posv)))
+    used = set(bt[0][bt[0] >= 0].tolist())
+    free = torch.tensor([p for p in range(NP + 40) if p not in used])
+    g = torch.Generator().manual_seed(3)
+    q2, k2, v2, kvp2, bt2, pos2 = (t.clone() for t in (q, k, v, kvp, bt,
+                                                       posv))
+    k2[free] = torch.randn(k2[free].shape, generator=g).bfloat16()
+    v2[free] = torch.randn(v2[free].shape, generator=g).bfloat16()
+    q2[1:] = torch.randn(q2[1:].shape, generator=g).bfloat16()
+    bt2[1:] = -1
+    pick = free[torch.randperm(len(free), generator=g)]
+    n = min(mb, len(pick) // (B - 1))
+    for b in range(1, B):
+        bt2[b, :n] = pick[(b - 1) * n:b * n].int()
+        pos2[b] = (pos2[b] * 7 + 13) % (mb * ps)
+    b2 = decode_attention_paged(*(t.to(cuda) for t in (
+        q2, k2[:, 0], v2[:, 0], kvp2[:, 0], bt2, pos2)))
+    assert torch.equal(a[0], b2[0])
+    assert not torch.equal(a[1:], b2[1:])
