@@ -14,13 +14,16 @@ caught):
    paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
    yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K1's paged
    entry at the engine's decode shape (8 lanes at ragged positions over
-   pages of 16 scattered through a 288-page pool), K3 at mamba2-1.3b's
+   pages of 16 scattered through a 288-page pool, and the 8 idle rows that
+   pad the decode to 16 rows), K3 at mamba2-1.3b's
    (bf16 on its mma route, f32 on the CUDA cores), K4 at
    recurrentgemma-9b's, plus ragged, small and edge cases (K1: wholly
    masked splits, one lane; K1 paged: pages of 4, an inactive lane, a
    position on a page boundary, positions past the mapped span, a window,
-   every lane inactive (the floor, timed), each case logging the route
-   ``paged_plan`` gave it;
+   every lane inactive (the floor, timed), the disagg phase's decode
+   replica (14 lanes and 2 idle rows, tables of 37 pages over 518,
+   timed), each case
+   logging the route ``paged_plan`` gave it;
    K2: Sq 1/127/129/200, windows ending on a tile
    boundary, hd 16 and 64; K3: chunk 100, the smoke shape), and the
    features phase's call patterns (K1 paged at one lane as
@@ -70,14 +73,24 @@ caught):
    dense and K2 launches, accept rate and decode tokens/s); (g) reserved
    mode on (f)'s requests (exact launches, one decode step's logits
    within LOGIT_REL_TOL of the plain path's);
-16. the CRI layer at full-width yi-9b (``phase_cri``): the same 24
+16. prefill/decode disaggregation at full-width yi-9b (``phase_disagg``,
+   budget 150 s and 45 GB, both gated): the engine phase's 24 requests
+   through one RequestRouter -> a prefill replica (2 lanes, single-step)
+   -> the KV handoff (TransferQueue: gather, d2h, h2d, scatter) -> a
+   decode replica (14 lanes, 8 steps fused, one EXECUTE ahead), each on
+   its own monitor and slice of the card; (a) the engine phase's run (a)
+   tokens, (b) the same with two transfers torn (each replays through its
+   lease; every request once), (c) the decode replica's first step after
+   an install, kernel-path logits within LOGIT_REL_TOL of the plain
+   path's; exact launches over both replicas;
+17. the CRI layer at full-width yi-9b (``phase_cri``): the same 24
    requests through NodeAgent -> ContainerEngine -> FunkyRuntime on two
    nodes of the card, with a full and an incremental checkpoint to disk
    (the second bit-flipped after publishing), evict and migrate, replicate,
    a hard failure of the replica's node with lease replay, and a restore
    that falls back to the first snapshot; run (a)'s tokens, exact launch
    counts over every replica, seconds and bytes of each operation;
-17. the control plane at full-width yi-9b (``phase_orch``): ``make_cluster``
+18. the control plane at full-width yi-9b (``phase_orch``): ``make_cluster``
    (two nodes of two slices on the card, PRE_MG) with four mamba2-1.3b
    batch tasks, the service preempting one by Algorithm 1, a
    ``LatencySLOPolicy`` autoscaler scaling it to two replicas and back
@@ -86,7 +99,7 @@ caught):
    while it holds leases (replay, resubmit), teardown; every request once, sampled tokens equal one
    engine's, exact launch counts over every engine and batch task,
    scheduler tick and decode-step seconds, threads ended and memory freed;
-18. training at full width (``phase_train``): yi-9b cut to 8 of its 48
+19. training at full width (``phase_train``): yi-9b cut to 8 of its 48
    layers, seq 1024, global batch 8 in 4 microbatches: (a) the fused
    ``make_train_step`` called directly, (b) the same image as a
    ``TrainTask`` through ``make_cluster`` -> FunkyRuntime -> FunkyCL ->
@@ -151,7 +164,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
-          "cri", "orch", "train")
+          "disagg", "cri", "orch", "train")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -797,18 +810,20 @@ def phase_kernels(state):
                  window=2048, time_it=True)
     # K1's paged entry at the engine's decode shape: 8 lanes at ragged
     # positions over pages of 16 scattered through a 288-page pool, table
-    # width 36 (prompt 512 + 64 tokens), unmapped tails; then page size 4,
-    # an inactive lane, a position on a page boundary, positions past the
+    # width 36 (prompt 512 + 64 tokens), unmapped tails, and the 8 idle
+    # rows that pad the decode to DECODE_ROWS (16); then page size 4, an
+    # inactive lane, a position on a page boundary, positions past the
     # mapped span, a window
-    _paged_case(state, "path", 8, 16, 36, 288, 32, 4, 128,
-                ENGINE_PAGED_POS, "bfloat16", time_it=True)
+    _paged_case(state, "path", 16, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS + [0] * 8, "bfloat16",
+                inactive=tuple(range(8, 16)), time_it=True)
     _paged_case(state, "path_f32", 8, 16, 36, 288, 32, 4, 128,
                 ENGINE_PAGED_POS, "float32", time_it=True)
     # the floor: the engine's shape with every lane inactive (launch, table
     # row, merge; no page read)
-    _paged_case(state, "floor_inactive", 8, 16, 36, 288, 32, 4, 128,
-                ENGINE_PAGED_POS, "bfloat16", inactive=tuple(range(8)),
-                time_it=True)
+    _paged_case(state, "floor_inactive", 16, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS + [0] * 8, "bfloat16",
+                inactive=tuple(range(16)), time_it=True)
     _paged_case(state, "ps4_inactive_boundary", 4, 4, 40, 160, 32, 4, 128,
                 [100, 64, 159, 12], "bfloat16", inactive=(1,))
     _paged_case(state, "past_span", 3, 16, 8, 32, 32, 4, 128,
@@ -818,15 +833,21 @@ def phase_kernels(state):
     # the features phase's new call patterns: the paged entry at one lane
     # (prefill_chunk: page 3 of a 64-token prompt, a table row of 5 pages
     # of 16), verify's k+1 = 4 steps whose windows cross page boundaries
-    # (8 lanes, table width 11 = prompt 128 + 32 + 3), and the dense entry
+    # (8 lanes and 8 idle rows, table width 11 = prompt 128 + 32 + 3), and
+    # the dense entry
     # with per-lane positions at the draft lanes' shape (rings of 163
     # slots) and the reserved lanes' (160)
     _paged_case(state, "chunk_b1", 1, 16, 5, 40, 32, 4, 128, [53],
                 "bfloat16", time_it=True)
+    # the disagg phase's decode replica: 14 lanes and 2 idle rows, tables
+    # of 37 pages of 16 over its 518-page pool
+    _paged_case(state, "disagg_decode", 16, 16, 37, 518, 32, 4, 128,
+                DISAGG_PAGED_POS + [0] * 2, "bfloat16", inactive=(14, 15),
+                time_it=True)
     for i in range(4):
-        _paged_case(state, f"verify_w{i}", 8, 16, 11, 88, 32, 4, 128,
-                    [p + i for p in VERIFY_PAGED_POS], "bfloat16",
-                    time_it=i == 0)
+        _paged_case(state, f"verify_w{i}", 16, 16, 11, 88, 32, 4, 128,
+                    [p + i for p in VERIFY_PAGED_POS] + [0] * 8, "bfloat16",
+                    inactive=tuple(range(8, 16)), time_it=i == 0)
     _decode_case(state, "draft", 8, 163, 32, 4, 128,
                  [128, 150, 131, 140, 159, 129, 133, 147], "bfloat16",
                  time_it=True)
@@ -882,13 +903,15 @@ def _wrappers():
 
 
 def _zero_counts():
-    """Zeroes every wrapper's count and K1 paged's one-lane count."""
+    """Zeroes every wrapper's count and K1 paged's one-lane count and tally
+    by shape."""
     from repro_torch.kernels.decode_attention.ops import \
         decode_attention_paged
 
     for w in _wrappers().values():
         w.launches = 0
     decode_attention_paged.launches_b1 = 0
+    decode_attention_paged.launches_by_shape.clear()
 
 
 def _counts():
@@ -1296,15 +1319,15 @@ ENGINE = dict(arch="yi-9b", slots=8, page_size=16, prompt_buckets=(128, 512),
               n_requests=24)
 
 
-def engine_requests(vocab):
-    """The engine phase's workload, from seed 0."""
+def engine_requests(vocab, n=ENGINE["n_requests"]):
+    """The engine phase's workload (``n`` requests), from seed 0."""
     import numpy as np
 
     from repro_torch.serve.engine import ServeRequest
 
     rng = np.random.default_rng(SEED)
     out = []
-    for i in range(ENGINE["n_requests"]):
+    for i in range(n):
         n_prompt = int(rng.integers(64, 513))
         n_new = int(rng.integers(8, 65))
         out.append(ServeRequest(
@@ -1347,6 +1370,17 @@ def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device):
     return steps, prefills
 
 
+def _tbt_req_mean_p50(completed):
+    """p50 over requests of each one's mean time between tokens.  A fused
+    decode commits a span of tokens at once (the gaps inside a span are 0),
+    so the p50 over single gaps says nothing there; a request's mean gap is
+    its time per token after the first, handoffs included."""
+    import numpy as np
+
+    means = [sum(c.tbts) / len(c.tbts) for c in completed if c.tbts]
+    return float(np.percentile(means, 50)) if means else None
+
+
 def _engine_stats(eng, completed, wall, steps, prefills, launches):
     """What the run reports: latency quantiles, throughput, preemptions,
     compactions, the host/device split."""
@@ -1361,6 +1395,7 @@ def _engine_stats(eng, completed, wall, steps, prefills, launches):
             "ttft_p50_s": float(np.percentile(ttft, 50)),
             "ttft_p99_s": float(np.percentile(ttft, 99)),
             "tbt_p50_s": float(np.percentile(tbt, 50)),
+            "tbt_req_mean_p50_s": _tbt_req_mean_p50(completed),
             "tokens_per_s_e2e": n_tok / wall,
             "decode_tokens_per_s": (n_tok - len(completed))
             / eng.program_device_s[decode_prog],
@@ -1452,10 +1487,13 @@ def _paged_logit_check(eng, mon, cfg):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_paged
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
 
     saved = {k: w.launches for k, w in _wrappers().items()}
+    saved_shape = dict(decode_attention_paged.launches_by_shape)
     buf = {n: mon.buffers.get(n).device_value
            for n in ("params", "toks", "pos", "block_table", "kv_pool")}
     active = buf["block_table"][:, 0] >= 0
@@ -1480,6 +1518,8 @@ def _paged_logit_check(eng, mon, cfg):
             del pool
     for k, w in _wrappers().items():
         w.launches = saved[k]
+    decode_attention_paged.launches_by_shape.clear()
+    decode_attention_paged.launches_by_shape.update(saved_shape)
     ref = out["naive"]
     rel = ((out["kernel"] - ref).abs().max() / ref.abs().max()).item()
     agree = (out["kernel"].argmax(-1) == ref.argmax(-1)).float().mean()
@@ -2126,7 +2166,350 @@ def phase_features(state, device="cuda", cut=None):
 
 
 # ---------------------------------------------------------------------------
-# 16. the CRI layer: checkpoint, migrate, replicate, crash, restore
+# 16. prefill/decode disaggregation: two replicas and the KV handoff
+# ---------------------------------------------------------------------------
+
+# fig15's pair for the engine phase's 8 lanes, (slots // 4, 2 * slots -
+# slots // 4): a prefill replica of 2 lanes, single-step, and a decode
+# replica of 14 lanes, 8 steps fused and one EXECUTE ahead, whose default
+# pool holds every lane at its limit; the engine phase's model, pages,
+# buckets and caps.  (b) tears the transfers in ``torn_at`` (1-based, over
+# the run's transfer attempts).  ``ref_pool`` is the mixed engine's pool
+# when the phase runs without the engine phase's tokens.
+DISAGG = dict(arch="yi-9b", prefill_slots=2, decode_slots=14,
+              decode_fuse=8, decode_async=1,
+              page_size=ENGINE["page_size"],
+              prompt_buckets=ENGINE["prompt_buckets"],
+              prompt_len=ENGINE["prompt_len"],
+              max_new_tokens=ENGINE["max_new_tokens"],
+              n_requests=ENGINE["n_requests"], ref_pool=ENGINE["pool_pages"],
+              torn_at=(2, 5), max_phase_s=150,
+              max_peak_gb=45, mem_cap=36 << 30)
+# K1's paged entry at the decode replica's shape: 14 lanes at ragged
+# positions (and 2 idle rows), tables of 37 pages of 16 (prompt 512 + 64
+# tokens + the fused span's 7 slots of headroom) over its pool of 14 x 37 =
+# 518 pages
+DISAGG_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498, 160, 289, 540,
+                    77, 444, 320]
+
+
+def _disagg_engine_kw(dc):
+    return dict(prompt_len=dc["prompt_len"],
+                max_new_tokens=dc["max_new_tokens"],
+                page_size=dc["page_size"],
+                prompt_buckets=dc["prompt_buckets"], seed=SEED)
+
+
+def _disagg_requests(dc, vocab):
+    """The engine phase's workload (its first ``n_requests``)."""
+    return engine_requests(vocab, dc["n_requests"])
+
+
+def _disagg_reference(dc, device, vocab):
+    """The workload on one mixed engine (the engine phase's run (a) lanes
+    and pool, on a monitor): the tokens the pair must reproduce when the
+    phase runs without the engine phase."""
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.equivalence import run_transcript
+
+    def factory():
+        mon = Monitor("disagg-mixed", SliceAllocator(
+            "node0", 1, mem_cap_bytes=dc["mem_cap"], device=device),
+            telemetry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(
+            dc["arch"], FunkyCL(mon), engine_id="disagg-mixed",
+            slots=ENGINE["slots"], pool_pages=dc["ref_pool"],
+            **_disagg_engine_kw(dc))
+        eng.setup()
+        return mon, eng
+
+    tokens, eng = run_transcript(factory,
+                                 lambda: _disagg_requests(dc, vocab))
+    del eng
+    if device == "cuda":
+        _free_cuda()
+    return tokens
+
+
+def _disagg_pair(dc, device, reg):
+    """The two replicas on two slices of the one card, each with its own
+    monitor and its weights drawn from seed 0."""
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    alloc = SliceAllocator("node0", 2, mem_cap_bytes=dc["mem_cap"],
+                           device=device)
+    pair = []
+    for role, slots, fuse, depth in (
+            ("prefill", dc["prefill_slots"], 1, 0),
+            ("decode", dc["decode_slots"], dc["decode_fuse"],
+             dc["decode_async"])):
+        mon = Monitor(f"disagg-{role}", alloc, telemetry=reg)
+        eng = ContinuousBatchingEngine(
+            dc["arch"], FunkyCL(mon), engine_id=f"disagg-{role}",
+            service="disagg", slots=slots, fuse_steps=fuse,
+            async_depth=depth, role=role, **_disagg_engine_kw(dc))
+        eng.setup()
+        pair.append((mon, eng))
+    return pair
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    return ({"p50": float(np.percentile(xs, 50)), "max": float(max(xs))}
+            if xs else None)
+
+
+def _disagg_run(dc, device, cfg, pair, reg, reqs, chaos=None, check=None):
+    """One drive of the pair: one RequestRouter and one TransferQueue, the
+    replicas pumped in turn by this loop (``tests/test_disagg.py``'s
+    ``run_disagg``) until every request completed.  ``check`` (a list) gets
+    (c): the decode replica's first decode step after its first install,
+    kernel path against plain path (``_paged_logit_check``).  Returns
+    ({rid: tokens}, stats); the stats' launches are this run's only."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_paged
+    from repro_torch.models.transformer import DECODE_ROWS
+    from repro_torch.scaling.serving import RequestRouter
+    from repro_torch.serve.disagg import (M_HANDOFF, M_HANDOFF_FALLBACK,
+                                          M_TRANSFER_BYTES, TransferQueue)
+
+    (monP, engP), (monD, engD) = pair
+    router = RequestRouter("disagg", registry=reg, kv_aware=False)
+    tq = TransferQueue(router=router, registry=reg, service="disagg",
+                       chaos=chaos)
+    engP.attach_transfer(tq)
+    engD.attach_transfer(tq)
+    counters = (M_HANDOFF, M_HANDOFF_FALLBACK, M_TRANSFER_BYTES)
+    c0 = {n: reg.counter(n, service="disagg").value for n in counters}
+    x0 = [(dict(e.program_execs), dict(e.program_device_s))
+          for _, e in pair]
+    # per handoff: the export's host seconds (gather EXECUTE + d2h read,
+    # which waits for it) and the install's completions (h2d, scatter,
+    # lane_set), whose device phases are read once the run is over
+    exports, installs = [], []
+
+    def export_lane(st, _orig=engP.export_lane):
+        t0 = time.perf_counter()
+        h = _orig(st)
+        exports.append(time.perf_counter() - t0)
+        return h
+
+    def import_lane(h, _orig=engD.import_lane):
+        n0 = len(engD._step_completions)
+        ok = _orig(h)
+        if ok:
+            installs.append(engD._step_completions[n0:])
+        return ok
+
+    engP.export_lane, engD.import_lane = export_lane, import_lane
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            router.submit(r)
+        for _ in range(100000):
+            engP.pump(router)
+            if check is not None and not check and len(tq) and engD._free:
+                # (c): install, ship the imported rows, drain the replica's
+                # queue, then one decode step on both paths
+                tq.pump_dest(engD)
+                if engD._active and device == "cuda":
+                    engD._flush_block_table()
+                    engD.cl.clFinish()
+                    check.append(_paged_logit_check(engD, monD, cfg))
+            engD.pump(router)
+            if (not router.outstanding() and engP.idle and engD.idle
+                    and len(tq) == 0):
+                break
+        else:
+            raise AssertionError("disagg: the pair did not drain")
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        by_shape = dict(decode_attention_paged.launches_by_shape)
+    finally:
+        # the wrappers close over their engine: drop them with the run
+        del engP.export_lane, engD.import_lane
+    completed = list(router.completed.values())
+    tokens = {c.rid: list(c.tokens) for c in completed}
+    per = {}
+    for (role, eng), (pe0, pd0) in zip(
+            (("prefill", engP), ("decode", engD)), x0):
+        pe = {p: n - pe0.get(p, 0) for p, n in eng.program_execs.items()}
+        pd = {p: s - pd0.get(p, 0.0) for p, s in eng.program_device_s.items()}
+        prog = "decode_multi" if eng.fuse_steps > 1 else "decode_step"
+        per[role] = {
+            "decode_steps": eng.fuse_steps * pe.get(prog, 0),
+            "admissions": sum(n for p, n in pe.items()
+                              if p.startswith("prefill_admit")),
+            "decode_device_s": pd.get(prog, 0.0),
+            "program_execs": {p: n for p, n in pe.items() if n}}
+    # K1 paged's launches by (rows, table width): each replica decodes at
+    # its own, 16 rows over 36 pages (prefill) and 37 (decode), so the
+    # wrapper's tally counts each replica's launches apart
+    L = cfg.num_layers
+    want_shape = {}
+    for role, eng in (("prefill", engP), ("decode", engD)):
+        per[role]["K1p"] = L * per[role]["decode_steps"]
+        per[role]["K2"] = L * per[role]["admissions"]
+        shape = (-(-eng.slots // DECODE_ROWS) * DECODE_ROWS, eng.max_blocks)
+        per[role]["k1p_shape"] = list(shape)
+        per[role]["K1p_counted"] = by_shape.get(shape, 0)
+        if per[role]["K1p"]:
+            want_shape[shape] = want_shape.get(shape, 0) + per[role]["K1p"]
+    expected = {"K1": 0, "K1p": sum(p["K1p"] for p in per.values()),
+                "K1p_b1": 0, "K2": sum(p["K2"] for p in per.values()),
+                "K3": 0, "K4": 0}
+    if device == "cuda" and (launches != expected or by_shape != want_shape
+                             or len(want_shape) < 2):
+        raise AssertionError(f"disagg: launch counts {launches} and by "
+                             f"shape {by_shape}, expected {expected} and "
+                             f"{want_shape}, one shape per replica ({per})")
+    n_tok = sum(len(t) for t in tokens.values())
+    ttft = [c.ttft_s for c in completed]
+    inst = [sum((c.phases or {}).get("device_s", 0.0) for c in cs)
+            for cs in installs]
+    decode_s = sum(p["decode_device_s"] for p in per.values())
+    stats = {
+        "requests": len(completed), "tokens": n_tok, "wall_s": wall,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "tbt_req_mean_p50_s": _tbt_req_mean_p50(completed),
+        "tokens_per_s_e2e": n_tok / wall,
+        # tokens after the first over both replicas' decode device seconds
+        "decode_tokens_per_s": (n_tok - len(completed)) / decode_s,
+        **{n: reg.counter(n, service="disagg").value - c0[n]
+           for n in counters},
+        "torn": tq.torn, "duplicates": router.duplicates,
+        "replay_mismatches": router.replay_mismatches,
+        "export_s": _quantiles(exports),
+        "install_device_s": _quantiles(inst),
+        "ewma_install_s": tq.stats()["ewma_install_s"],
+        "replicas": per, "launches": launches}
+    return tokens, stats
+
+
+def _first_divergence(got, want):
+    """{rid: (index of the first differing token, got, want)} of the
+    requests whose tokens differ (index 0 is the admission's, index 1 the
+    prefill replica's decode step, later ones mostly the decode
+    replica's)."""
+    out = {}
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        if a != b:
+            i = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                     min(len(a), len(b)))
+            out[rid] = (i, a[i:i + 2], b[i:i + 2])
+    return out
+
+
+def phase_disagg(state, device="cuda", cut=None):
+    """Prefill/decode disaggregation at full-width yi-9b (bf16, weights
+    from seed 0 on both replicas): the engine phase's 24 requests through
+    RequestRouter -> prefill replica -> FunkyCL -> Monitor, then the KV
+    handoff (TransferQueue) -> decode replica -> FunkyCL -> Monitor.
+    (a) the tokens of the engine phase's run (a) (of one mixed engine when
+    the phase runs alone), at least one handoff; (b) the same with the
+    transfers in ``torn_at`` torn: each replays through its lease, every
+    request completes once with (a)'s tokens; (c) the decode replica's
+    first step after its first install, kernel path within LOGIT_REL_TOL of
+    the plain path.  Exact launches over both replicas (K2 48 per
+    admission, K1 paged 48 per decode step, dense K1 none), under
+    ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides ``DISAGG`` (a
+    rehearsal on the CPU at smoke size)."""
+    import torch
+
+    from repro_torch.chaos import FaultPlan, FaultSpec
+    from repro_torch.configs import get_arch
+    from repro_torch.scaling.metrics import MetricsRegistry
+
+    dc = dict(DISAGG, **(cut or {}))
+    cfg = get_arch(dc["arch"])
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    ref = state.get("engine_tokens") if cut is None else None
+    ref_from = "engine phase run (a)"
+    if ref is None:
+        ref = _disagg_reference(dc, device, cfg.vocab_size)
+        ref_from = "one mixed engine in this phase"
+    reg = MetricsRegistry()
+    pair = _disagg_pair(dc, device, reg)
+    try:
+        check = []
+        a_tok, a = _disagg_run(dc, device, cfg, pair, reg,
+                               _disagg_requests(dc, cfg.vocab_size),
+                               check=check)
+        log(phase="disagg", run="a_handoffs", card=state.get("card"),
+            reference=ref_from, logit_check=check, **a)
+        # distinct match strings, each in every key (rid "qNN"): specs with
+        # equal match strings share one event count
+        plan = FaultPlan([FaultSpec(site="kv.transfer", kind="torn", at=n,
+                                    match="q" * i)
+                          for i, n in enumerate(dc["torn_at"])])
+        b_reqs = _disagg_requests(dc, cfg.vocab_size)
+        b_tok, b = _disagg_run(dc, device, cfg, pair, reg, b_reqs,
+                               chaos=plan)
+        log(phase="disagg", run="b_torn", card=state.get("card"),
+            fired=plan.fired, **b)
+    finally:
+        for mon, _ in pair:
+            mon.vfpga_exit()
+        del pair
+    if device == "cuda":
+        _free_cuda()
+    stats = {"phase_s": time.perf_counter() - t_phase,
+             "launches": {k: a["launches"].get(k, 0)
+                          + b["launches"].get(k, 0) for k in _wrappers()},
+             # counted by the wrapper at the decode replica's shape
+             "decode_replica_k1p": a["replicas"]["decode"]["K1p_counted"]
+             + b["replicas"]["decode"]["K1p_counted"]}
+    if device == "cuda":
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats["left_allocated_bytes"] = torch.cuda.memory_allocated()
+    if "engine" in state:
+        stats["engine_a"] = {k: state["engine"]["a"][k] for k in (
+            "wall_s", "ttft_p50_s", "ttft_p99_s", "tbt_p50_s",
+            "tbt_req_mean_p50_s", "decode_tokens_per_s")}
+    log(phase="disagg", card=state.get("card"), summary=stats)
+    state.setdefault("launches", {})["disagg"] = stats["launches"]
+    state["disagg"] = {"a": a, "b": b, "c": check, **stats}
+    if a_tok != ref:
+        raise AssertionError(f"disagg (a): tokens differ from {ref_from}: "
+                             f"{_first_divergence(a_tok, ref)}")
+    want_b = {r.rid: ref[r.rid] for r in b_reqs}
+    if b_tok != want_b:
+        raise AssertionError(f"disagg (b): tokens differ from (a): "
+                             f"{_first_divergence(b_tok, want_b)}")
+    if a["handoff_total"] < 1:
+        raise AssertionError("disagg (a): no lane was handed off")
+    if (b["torn"] != len(dc["torn_at"]) or b["duplicates"]
+            or b["replay_mismatches"] or b["requests"] != len(b_reqs)):
+        raise AssertionError(
+            f"disagg (b): torn {b['torn']} (want {len(dc['torn_at'])}), "
+            f"duplicates {b['duplicates']}, replay mismatches "
+            f"{b['replay_mismatches']}, {b['requests']} of {len(b_reqs)} "
+            "requests")
+    if device == "cuda" and (not check or check[0]["logit_rel_err"]
+                             > LOGIT_REL_TOL):
+        raise AssertionError(f"disagg (c): kernel vs plain logits {check}")
+    if device == "cuda" and stats["phase_s"] > dc["max_phase_s"]:
+        raise AssertionError(f"disagg: the phase took {stats['phase_s']:.1f}"
+                             f" s, over {dc['max_phase_s']} s")
+    if stats.get("peak_gb", 0.0) > dc["max_peak_gb"]:
+        raise AssertionError(f"disagg: peak {stats['peak_gb']:.2f} GB, over "
+                             f"{dc['max_peak_gb']} GB")
+
+
+# ---------------------------------------------------------------------------
+# 17. the CRI layer: checkpoint, migrate, replicate, crash, restore
 # ---------------------------------------------------------------------------
 
 # two nodes on the one card, each with two slices of 36 GiB (node0 holds
@@ -2381,7 +2764,7 @@ def _cri(state, cfg, arch, device, want, root):
 
 
 # ---------------------------------------------------------------------------
-# 17. the orchestrator: Algorithm 1, autoscaling, node failure, open loop
+# 18. the orchestrator: Algorithm 1, autoscaling, node failure, open loop
 # ---------------------------------------------------------------------------
 
 # make_cluster's two nodes on the one card, two 36 GiB slices each; ``svc``
@@ -2894,7 +3277,7 @@ def _orch(state, arch, device, root, m_arch):
 
 
 # ---------------------------------------------------------------------------
-# 18. training at full width
+# 19. training at full width
 # ---------------------------------------------------------------------------
 
 # yi-9b at full width (d_model 4096, 32/4 heads, hd 128, d_ff 11008, vocab
@@ -3425,6 +3808,7 @@ def kernel_line(state):
     rows[2]["launches_cri"] = state["launches"]["cri"]["K2"]
     rows[2]["launches_orch"] = state["launches"]["orch"]["K2"]
     rows[2]["launches_features"] = state["launches"]["features"]["K2"]
+    rows[2]["launches_disagg"] = state["launches"]["disagg"]["K2"]
     rows[4]["launches_orch"] = state["launches"]["orch"]["K3"]
     # training runs the plain forwards under autograd: no kernel
     for row, key in zip(rows, ("K1", "K1", "K2", "K2", "K3", "K4")):
@@ -3438,17 +3822,22 @@ def kernel_line(state):
         "launches_cri": state["launches"]["cri"]["K1p"],
         "launches_orch": state["launches"]["orch"]["K1p"],
         "launches_features": state["launches"]["features"]["K1p"],
+        "launches_disagg": state["launches"]["disagg"]["K1p"],
         "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
         "event_ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "gather_dense_ms": r["gather_dense_ms"],
         "launches_train": state["launches"]["train"]["K1p"]})
-    # the features phase's call patterns: the paged entry at one lane
-    # (prefill_chunk) and at verify's window, the dense entry with per-lane
-    # positions (draft and reserved lanes); launches are the phase's, each
-    # counted (phase_features)
+    # the paged entry at the disagg phase's decode replica (its launches
+    # counted at its shape, phase_disagg) and the features phase's call
+    # patterns: the paged entry at one lane (prefill_chunk) and at verify's
+    # window, the dense entry with per-lane positions (draft and reserved
+    # lanes); launches are the phase's, each counted (phase_features)
     feat = state["features"]
     for key, case, name, launches in (
+            ("k1p", "disagg_decode",
+             "decode_attention_paged (disagg_decode)",
+             state["disagg"]["decode_replica_k1p"]),
             ("k1p", "chunk_b1", "decode_attention_paged (chunk_b1)",
              feat["k1p_b1_launches"]),
             ("k1p", "verify_w0", "decode_attention_paged (verify_w0)",
@@ -3466,7 +3855,9 @@ def kernel_line(state):
             "ms": r["device_ms"], "event_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": r.get("library_device_ms")})
+            "library_ms": r.get("library_device_ms"),
+            **({"gather_dense_ms": r["gather_dense_ms"]}
+               if "gather_dense_ms" in r else {})})
     return {"kernels": rows}
 
 

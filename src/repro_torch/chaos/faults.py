@@ -15,12 +15,16 @@ named *sites* threaded through the stack behind no-op hooks:
     ckpt.corrupt            after a successful publish (kind: corrupt —
                             flips a byte in one on-disk buffer file)
     ckpt.restore            before a restore reads (kind: error)
+    router.pop              request intake (kind: delay)
+    kv.transfer             KV handoff install on the decode replica
+                            (kind: torn | error | delay — a torn transfer
+                            loses the lane in transit; the request
+                            replays through its router lease)
 
-(The reference's ``router.pop`` and ``kv.transfer`` sites come with the
-router's chaos hooks and disaggregation.)  Every decision is a pure
-function of (seed, spec list, per-site event counts), so two runs with the
-same plan over the same events fire identically.  Components built without
-a plan (``chaos=None``) skip the hook entirely.
+Every decision is a pure function of (seed, spec list, per-site event
+counts), so two runs with the same plan over the same events fire
+identically.  Components built without a plan (``chaos=None``) skip the
+hook entirely.
 
 Exception taxonomy:
 
@@ -76,7 +80,8 @@ class FaultSpec:
 
 class FaultPlan:
     """Seeded, thread-safe schedule of faults. ``check`` is the only hook
-    primitive; ``raise_if`` turns its verdict into the site's reaction."""
+    primitive; ``raise_if`` and ``maybe_delay`` turn its verdict into the
+    site's reaction."""
 
     def __init__(self, specs: Optional[List[FaultSpec]] = None, *,
                  seed: int = 0, registry=None):
@@ -133,3 +138,11 @@ class FaultPlan:
         if spec.kind in ("crash", "torn"):
             raise InjectedCrash(f"injected crash at {site} ({key})")
         raise InjectedFault(f"injected fault at {site} ({key})")
+
+    def maybe_delay(self, site: str, key: str = "") -> None:
+        """delay -> sleep; any other kind is counted and ignored (a site
+        whose only sensible reaction is a stall)."""
+        spec = self.check(site, key)
+        if spec is not None and spec.kind == "delay":
+            import time
+            time.sleep(spec.delay_s)

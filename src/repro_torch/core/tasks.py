@@ -56,6 +56,9 @@ class TaskImage:
     prompt_buckets: tuple = ()      # e.g. (128, 512); empty = (prompt_len,)
     fuse_steps: int = 1             # greedy steps per decode EXECUTE
     async_depth: int = 0            # decode EXECUTEs submitted ahead
+    # engine-serve disaggregation role (mixed | prefill | decode); the
+    # caller attaches the TransferQueue to the replica's engine
+    role: str = "mixed"
     # engine-serve speculative decode (0 = off)
     spec_k: int = 0
     spec_draft_arch: Optional[str] = None   # None = self-draft (target arch)
@@ -380,7 +383,8 @@ class EngineServeTask(GuestTask):
             paged=im.paged_kv, page_size=im.page_size,
             pool_pages=im.kv_pool_pages, reserve_pages=im.kv_reserve_pages,
             prompt_buckets=im.prompt_buckets or None, spec=spec,
-            fuse_steps=im.fuse_steps, async_depth=im.async_depth)
+            fuse_steps=im.fuse_steps, async_depth=im.async_depth,
+            role=im.role)
         self._engine.setup(restore=restore)
 
     def step(self, cl: FunkyCL, gs: GuestState) -> bool:

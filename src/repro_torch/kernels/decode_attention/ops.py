@@ -13,7 +13,9 @@ lane's pages in place through its block-table row, with its own plain
 version (``decode_attention_paged_ref``) and its own count,
 ``decode_attention_paged.launches``; ``decode_attention_paged.launches_b1``
 counts apart those of its launches that take one lane (B 1, the prefix
-cache's ``prefill_chunk``).  In bf16 it launches its own kernel
+cache's ``prefill_chunk``) and ``decode_attention_paged.launches_by_shape``
+tallies them all by ``(B, max_blocks)``, which tells replicas of one card
+apart (the disaggregated pair's tables are 36 and 37 pages wide).  In bf16 it launches its own kernel
 (``decode_paged_kernel``), which splits a lane's table by whole pages;
 ``paged_plan`` chooses the route and the split from static shapes only.
 """
@@ -42,6 +44,10 @@ TILE = 16           # csrc/decode_attention.cu: TILE (slots a warp takes at once
 # cluster per (lane, kv head): tools/k1p_breakdown.py timed both routes at
 # 5 tiles (one CTA faster), 11 and 36 (a cluster faster)
 SINGLE_TILES = 8
+# a longer table of at most this many tiles takes CTAs of one tile a warp
+# (CHUNK_GRANULE slots), a longer one CTAs of two: verify's window (11
+# tiles) in 3 CTAs of 4 pages took 5.46 us against 7.01 us in 2 of 8
+SHORT_TILES = 12
 _ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P)
 _L = ctypes.c_longlong
 _PAGED_ARGTYPES = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, _L, _L, I, F,
@@ -72,35 +78,41 @@ def paged_plan(B: int, Hkv: int, max_blocks: int, ps: int,
     takes the same route.  CTA r of the cluster of one (lane, kv head)
     takes the table's slots [r * chunk, (r + 1) * chunk).
 
-    bf16 (``decode_paged_kernel``): whole pages, ``chunk = ppc * ps``.
-    ``"single"``: a table of at most ``SINGLE_TILES`` tiles of ``TILE``
-    slots, or a batch that fills the card, takes one CTA and no cluster;
-    ``"cluster"``: otherwise the B * Hkv clusters cover ``sm_count`` SMs
-    (at most ``MAX_CLUSTER`` CTAs of whole pages, a multiple of
-    ``CHUNK_GRANULE`` slots each).  A CTA stages at most
-    ``BT_STAGE`` table entries.  f32 (``"slots"``): ``split_plan`` over the
-    table's slots."""
+    bf16 (``decode_paged_kernel``): whole pages, ``chunk = ppc * ps``,
+    from the table's width and ``ps`` alone: ``"single"``, a table of at
+    most ``SINGLE_TILES`` tiles of ``TILE`` slots takes one CTA and no
+    cluster; ``"cluster"``, a longer one takes CTAs of ``CHUNK_GRANULE``
+    slots (up to ``SHORT_TILES`` tiles) or ``SINGLE_TILES`` tiles (beyond)
+    of whole pages, more only where ``MAX_CLUSTER`` CTAs would not cover the
+    table.  A lane's tiles thus fall to the same warps and CTAs and merge
+    in the same order whatever the batch, and past the lane's own pages a
+    wider table only adds empty CTAs: a lane decodes to the same bits in a
+    replica of 2 lanes or of 14, with 36 pages to a row or 37
+    (prefill/decode disaggregation moves lanes between such replicas;
+    ``B``, ``Hkv`` and ``sm_count`` size the split of f32 only).  A CTA
+    stages at most ``BT_STAGE`` table entries.  f32 (``"slots"``):
+    ``split_plan`` over the table's slots."""
     if dtype != torch.bfloat16:
         chunk, cluster = split_plan(B, Hkv, max_blocks * ps, sm_count)
         if (chunk - 1) // ps + 2 > BT_STAGE:
             raise ValueError(f"decode_attention_paged: {chunk} slots per CTA "
                              f"span more than {BT_STAGE} pages of {ps}")
         return "slots", chunk, cluster
+    tiles = -(-max_blocks * ps // TILE)
+    if tiles <= SINGLE_TILES:
+        return "single", max_blocks * ps, 1
     # whole pages of CHUNK_GRANULE slots (a tile for each of the 4 warps)
     gran = CHUNK_GRANULE // math.gcd(ps, CHUNK_GRANULE)
-    want = -(-sm_count // (B * Hkv))
-    cluster = 1
-    if -(-max_blocks * ps // TILE) > SINGLE_TILES:
-        cluster = max(1, min(MAX_CLUSTER, want, -(-max_blocks // gran)))
-    cluster = max(cluster, -(-max_blocks // BT_STAGE))
-    ppc = -(-max_blocks // cluster)
-    if cluster > 1:
-        ppc = -(-ppc // gran) * gran
-    cluster = -(-max_blocks // ppc)
-    if cluster > MAX_CLUSTER:
+    per = CHUNK_GRANULE if tiles <= SHORT_TILES else SINGLE_TILES * TILE
+    ppc = max(-(-per // ps), -(-max_blocks // MAX_CLUSTER))
+    ppc = -(-ppc // gran) * gran
+    if ppc > BT_STAGE:
         raise ValueError(f"decode_attention_paged: a table of {max_blocks} "
                          f"pages needs more than {MAX_CLUSTER} CTAs")
-    return ("single" if cluster == 1 else "cluster"), ppc * ps, cluster
+    cluster = -(-max_blocks // ppc)
+    if cluster == 1:
+        return "single", max_blocks * ps, 1
+    return "cluster", ppc * ps, cluster
 
 
 def sm_count(device: torch.device) -> int:
@@ -264,8 +276,11 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     decode_attention_paged.launches += 1
     if B == 1:
         decode_attention_paged.launches_b1 += 1
+    by_shape = decode_attention_paged.launches_by_shape
+    by_shape[B, max_blocks] = by_shape.get((B, max_blocks), 0) + 1
     return out
 
 
 decode_attention_paged.launches = 0
 decode_attention_paged.launches_b1 = 0
+decode_attention_paged.launches_by_shape = {}

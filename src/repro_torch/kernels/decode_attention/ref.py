@@ -81,7 +81,11 @@ def decode_attention_paged_ref(q, k_pool, v_pool, kv_pos_pool, block_table,
     ``sdpa_naive``.  A lane that keeps no slot (inactive: block_table[b, 0]
     < 0) gets zeros, the kernel's defined output; nothing reads it."""
     outs = []
+    active = (block_table[:, 0] >= 0).tolist()
     for b in range(q.shape[0]):
+        if not active[b]:
+            outs.append(torch.zeros_like(q[b:b + 1]))
+            continue
         k, v, kv_pos = gather_lane(k_pool, v_pool, kv_pos_pool,
                                    block_table[b])
         qp = pos[b:b + 1].to(torch.int32)

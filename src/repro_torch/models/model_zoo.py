@@ -7,8 +7,8 @@ families so far).
     loss_fn(params, batch)                   -> (loss, metrics)
     prefill_fn(params, batch)                -> (logits, caches)
     decode_fn(params, tok, pos, caches, inplace=False) -> (logits, caches)
-    decode_paged_fn(params, tok, pos, pool, block_table, write_ok=None)
-                                             -> (logits, pool)
+    decode_paged_fn(params, tok, pos, pool, block_table, write_ok=None,
+                    rows=16)                 -> (logits, pool)
     cache_specs(batch, max_len)              -> caches as meta tensors
 
 ``decode_paged_fn`` is the serving engine's decode: every lane at its own

@@ -309,17 +309,41 @@ def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
     return logits[:, 0, :], caches
 
 
+# The paged decode runs its batch at a multiple of this many rows, the
+# rows past the lanes idle (token 0, position 0, a block-table row of -1).
+# cuBLAS picks a GEMM algorithm by the row count, and on the H100 a row's
+# bits at 14 or 16 rows differ from those at 8 (tools/batch_invariance.py):
+# at a fixed row count a lane's logits, and so its tokens, do not depend on
+# how many lanes its replica decodes.  Prefill/decode disaggregation moves
+# lanes between replicas of 2 and 14.
+DECODE_ROWS = 16
+
+
 def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
                     pos: torch.Tensor, pool, block_table: torch.Tensor, *,
                     impl: str = "kernel",
-                    write_ok: torch.Tensor | None = None):
+                    write_ok: torch.Tensor | None = None,
+                    rows: int = DECODE_ROWS):
     """One decode step of every lane of the serving engine over the paged
     pool (``serve/kvcache.py`` layout: the cache tree with page axis 0 in
     front of each segment's stacked ``count`` axis).  token: (B,) int;
     pos: (B,) int32, each lane's position; block_table: (B, max_blocks)
     int32.  Writes each lane's new k/v into its page in place (see
     ``attention.gqa_decode_paged``) and returns (logits (B, V), pool).
-    Attention-only plans only: other mixers have no pages."""
+    Attention-only plans only: other mixers have no pages.  The batch runs
+    padded with idle rows to a multiple of ``rows`` (``DECODE_ROWS``; the
+    prefix cache's one-lane ``prefill_chunk`` passes 1), which attention
+    treats as inactive lanes: K1 gives them zeros and their writes go to the
+    sink page."""
+    B = token.shape[0]
+    pad = -B % rows
+    if pad:
+        F = torch.nn.functional
+        token = F.pad(token.reshape(-1), (0, pad))
+        pos = F.pad(pos.to(torch.int32), (0, pad))
+        block_table = F.pad(block_table, (0, 0, 0, pad), value=-1)
+        if write_ok is not None:
+            write_ok = F.pad(write_ok, (0, pad))
     h = embed_fwd(cfg, params["embed"], token.reshape(-1, 1))
     for si, seg in enumerate(plan_segments(cfg)):
         for i in range(seg.count):
@@ -339,7 +363,7 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
                                     norm_fwd(cfg, p["norm2"], h))
     h = norm_fwd(cfg, params["final_norm"], h)
     logits = lm_head_fwd(cfg, params["embed"], h)
-    return logits[:, 0, :], pool
+    return logits[:B, 0, :], pool
 
 
 def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int):

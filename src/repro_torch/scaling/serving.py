@@ -1,9 +1,8 @@
 """The per-request serving path's frontend and the live-plane drive loops
-(the reference's ``scaling/serving.py``; its engine roles and lease
-transfer are not ported yet).
+(the reference's ``scaling/serving.py``).
 
-* ``RequestRouter`` — intake, KV-aware pop, completion, requeue and crash
-  replay.  Requests are published to the router; every ``EngineServeTask``
+* ``RequestRouter`` — intake, KV-aware and role-aware pop, completion,
+  requeue, lease transfer and crash replay.  Requests are published to the router; every ``EngineServeTask``
   replica's continuous-batching engine pulls admissible requests from it
   in ``pump`` and reports completions back, so the latencies in the
   registry are engine-measured, not modeled.
@@ -78,25 +77,40 @@ class RequestRouter:
     request is one connected tree.  A replayed or requeued request's new
     trace links back to its predecessor (relation ``recovers``).
 
+    **Role-aware routing** (disaggregated serving): replicas declare a
+    role via ``register_engine_role``.  ``decode`` replicas never pop
+    fresh prompts (their work arrives through the KV transfer queue);
+    with several ``prefill`` replicas, prompts route by bucketed prompt
+    length (a fixed bucket -> replica assignment), so each replica's
+    per-bucket prefill program stays hot.  ``transfer_lease`` follows a
+    lane across a handoff, so crash replay keeps conserving requests, and
+    ``replay_request`` replays one request lost to a torn transfer.
+
     Every popped request holds a lease until its engine completes or
     requeues it; ``complete`` counts each request once.  ``fail_engine``
     replays a crashed replica's leases, recording each request's
     committed tokens, and ``complete`` checks that the replayed completion
     starts with them (``replay_mismatches`` counts those that do not).
+    With a fault plan (``chaos=``), the ``router.pop`` site may delay a
+    pop.
     """
 
     def __init__(self, service: str = "svc", registry=None,
-                 kv_aware: bool = True, tracer=None):
+                 kv_aware: bool = True, tracer=None, chaos=None):
         self.service = service
         self.registry = registry
         self.kv_aware = kv_aware
         self.tracer = tracer            # repro_torch.obs.Tracer, optional
+        self.chaos = chaos              # repro_torch.chaos.FaultPlan
         self.closed = False
         self._lock = threading.Lock()
         self._pending: deque = deque()
         self._deferred: set = set()     # engines already held back once
         # engine_id -> prompt -> matched-token count (prefix-cache warmth)
         self._prefix_probes: Dict[str, Callable] = {}
+        # disaggregated serving: engine_id -> role / prompt buckets
+        self._roles: Dict[str, str] = {}
+        self._role_buckets: Dict[str, tuple] = {}
         self._leases: Dict[str, tuple] = {}   # rid -> (req, engine_id)
         self.completed: Dict[str, object] = {}   # rid -> CompletedRequest
         self.duplicates = 0
@@ -131,6 +145,31 @@ class RequestRouter:
         cache call this from ``pump``; idempotent."""
         with self._lock:
             self._prefix_probes[engine_id] = probe
+
+    def register_engine_role(self, engine_id: str, role: str,
+                             buckets: tuple = ()) -> None:
+        """Declare a replica's serving role (and its prompt buckets, for
+        bucketed prefill routing).  Engines call this from ``pump``;
+        idempotent."""
+        with self._lock:
+            self._roles[engine_id] = role
+            self._role_buckets[engine_id] = tuple(buckets)
+
+    def _prefill_preferred(self, engine_id: str) -> bool:
+        """Bucketed prompt-length routing between prefill replicas: the
+        head request's bucket maps onto the sorted prefill replica ids, so
+        each replica keeps to its own buckets' prefill programs."""
+        prefills = sorted(e for e, r in self._roles.items()
+                          if r == "prefill")
+        if len(prefills) < 2 or engine_id not in prefills:
+            return True
+        buckets = sorted(set(self._role_buckets.get(engine_id) or ()))
+        if not buckets:
+            return True
+        plen = int(np.asarray(self._pending[0].prompt).reshape(-1).shape[0])
+        fit = [i for i, b in enumerate(buckets) if b >= plen]
+        idx = fit[0] if fit else len(buckets) - 1
+        return prefills[idx % len(prefills)] == engine_id
 
     def _free_pages(self) -> Dict[str, float]:
         if self.registry is None:
@@ -178,8 +217,21 @@ class RequestRouter:
     def pop(self, n: int, engine_id: Optional[str] = None) -> list:
         if n <= 0:
             return []
+        if self.chaos is not None:
+            self.chaos.maybe_delay("router.pop", key=engine_id or "")
         with self._lock:
-            if (self.kv_aware and engine_id is not None and self._pending
+            role = self._roles.get(engine_id) if engine_id else None
+            if role == "decode":
+                # decode replicas receive work through the KV transfer
+                # queue, never fresh prompts
+                return []
+            if role == "prefill":
+                if (self._pending
+                        and not self._prefill_preferred(engine_id)):
+                    if engine_id not in self._deferred:
+                        self._deferred.add(engine_id)
+                        return []
+            elif (self.kv_aware and engine_id is not None and self._pending
                     and not self._preferred(engine_id)):
                 if engine_id not in self._deferred:
                     self._deferred.add(engine_id)
@@ -218,6 +270,34 @@ class RequestRouter:
                         committed=pre, got=list(record.tokens))
             self.completed[record.rid] = record
 
+    def transfer_lease(self, rid: str, engine_id: str) -> None:
+        """Move a popped request's lease to the replica now holding its
+        lane (a KV handoff): a crash of the new owner replays it, the old
+        owner's no longer does."""
+        with self._lock:
+            lease = self._leases.get(rid)
+            if lease is not None:
+                self._leases[rid] = (lease[0], engine_id)
+
+    def replay_request(self, req) -> None:
+        """One request lost in transit (a torn KV transfer): drop its lease
+        and replay it.  Its committed tokens are recorded, so ``complete``
+        checks that the recompute reproduces them as a prefix, and the
+        exactly-once guard rejects a double completion."""
+        with self._lock:
+            self._leases.pop(req.rid, None)
+            self.replayed[req.rid] = list(req.committed or [])
+            tr = getattr(req, "trace", None)
+            if tr is not None:
+                req._prev_trace = tr
+                tr.finish(torn_transfer=True)
+                req.trace = None
+            self._requeue_locked([req], reason="replayed")
+            if self.registry is not None:
+                self.registry.record_event(
+                    "router_replay", service=self.service,
+                    engine="kv.transfer", replayed=1)
+
     def requeue(self, reqs: list) -> None:
         """Return popped-but-unfinished requests (a killed replica's) to
         the head of the queue; their arrival times stick."""
@@ -254,6 +334,8 @@ class RequestRouter:
         double completion.  Returns the number of requests replayed."""
         with self._lock:
             self._prefix_probes.pop(engine_id, None)
+            self._roles.pop(engine_id, None)
+            self._role_buckets.pop(engine_id, None)
             reqs = [req for req, eng in self._leases.values()
                     if eng == engine_id]
             for req in reqs:

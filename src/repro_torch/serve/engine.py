@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (vLLM/Orca-style iteration-level
 scheduling on top of the Funky monitor) over **paged** device memory: the
-reference's ``serve/engine.py``, its ``mixed`` role.
+reference's ``serve/engine.py``.
 
 The engine owns ``slots`` decode lanes.  Each lane is an independent
 sequence with its own position; one *iteration* advances every occupied
@@ -54,6 +54,15 @@ Paged mode adds:
   mismatch, rolls the lane's position back and frees the orphaned tail
   pages; rejected writes left in kept pages sit at positions every later
   query masks until the lane overwrites them in order.
+* **prefill/decode disaggregation** (``role="prefill"`` or ``"decode"``,
+  with a ``serve/disagg.py:TransferQueue`` attached): a prefill replica
+  admits prompts and, once a lane's first token is committed, exports the
+  lane (``xfer_extract`` gathers its pages into the ``xfer_pages`` staging
+  buffer, read back to the host); a decode replica takes no prompts from
+  the router and imports lanes into fresh pages of its own pool
+  (``xfer_install``, then ``lane_set`` for the lane's token and
+  position).  The paged decode reads a lane through its block table, so
+  a handoff changes no token.
 
 Every device interaction is a Funky request through ``Monitor.submit``, so
 serving stays preemptible at token boundaries: ``Monitor.evict`` between
@@ -62,10 +71,6 @@ continues every in-flight sequence bit-exactly.  Per-request latencies
 (TTFT, time between tokens, end to end) and KV occupancy gauges land in
 the shared registry; with a tracer (``tracer=``, else the monitor's) each
 request is one span tree and each iteration an ``engine.step`` trace.
-
-Not ported yet (each raises ``NotImplementedError``): roles other than
-``mixed`` and the lane handoff (``attach_transfer``, ``export_lane``,
-``import_lane``).
 """
 
 from __future__ import annotations
@@ -93,11 +98,14 @@ from repro_torch.scaling.autoscaler import (M_COMPLETIONS, M_KV_FREE_PAGES,
 from repro_torch.scaling.metrics import MetricsRegistry
 from repro_torch.serve.kvcache import (BlockPool, apply_block_table_delta,
                                        cache_bytes, compact_pool,
+                                       extract_pool_pages,
                                        init_caches_from_specs,
-                                       install_lane_cache, lane_cache_specs,
+                                       install_lane_cache,
+                                       install_pool_pages, lane_cache_specs,
                                        pool_specs_from_lane_cache,
                                        scatter_prefill, scrub_pages)
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.tree import tree_map
 
 # Canonical per-request serving metrics (one schema across planes).
 M_TTFT = "request_ttft_seconds"
@@ -111,10 +119,6 @@ M_SPEC_K = "spec_k"                 # live speculative lookahead per engine
 M_HOST_US = "host_us_per_token"
 M_DEVICE_US = "device_us_per_token"
 M_QUEUE_WAIT_US = "queue_wait_us"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
 
 
 @dataclass(frozen=True)
@@ -229,10 +233,19 @@ class ContinuousBatchingEngine:
         from repro_torch.configs import get_arch
         from repro_torch.models import build_model
 
+        # disaggregated serving: a `prefill` replica admits prompts and
+        # hands freshly prefilled lanes to a `decode` replica through a
+        # TransferQueue; `mixed` is the aggregated engine.  Roles need paged
+        # KV (the handoff moves whole pool pages)
         if role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown role {role!r}")
-        if role != "mixed":
-            raise _not_ported(f"role {role!r} (disaggregated serving)")
+        if role != "mixed" and not paged:
+            raise ValueError("role-disaggregated serving needs paged=True "
+                             "(KV handoff moves pool pages)")
+        if role != "mixed" and spec is not None:
+            raise ValueError("speculative decode is host-authoritative and "
+                             "does not survive a lane handoff; use "
+                             "role='mixed'")
         if eos_id is not None and spec is not None:
             raise ValueError("eos_id does not compose with spec: verify "
                              "acceptance is host-decided, so EOS commits "
@@ -270,6 +283,8 @@ class ContinuousBatchingEngine:
                 "truncated — add prompt_len as the largest bucket")
         self.cl = cl
         self.slots = slots
+        self.role = role
+        self.transfer = None            # TransferQueue, via attach_transfer
         self.eos_id = eos_id
         self.max_new_tokens = max_new_tokens   # per-request cap
         self.service = service
@@ -496,6 +511,7 @@ class ContinuousBatchingEngine:
         pool_abs = pool_specs_from_lane_cache(
             bundle.cache_specs(1, self.prompt_len), NP, ps, self.prompt_len)
         self.pool_bytes = cache_bytes(pool_abs)
+        self.page_bytes = self.pool_bytes // (NP + 1)   # the sink included
         toks_abs, pos_abs = empty(B, 1), empty(B)
         bt_abs = empty(B, max_blocks)
         delta_abs = np.zeros((self._bt_delta_width, 3), np.int32)
@@ -632,7 +648,7 @@ class ContinuousBatchingEngine:
                 logits = None
                 for i in range(ps):
                     logits, pool = bundle.decode_paged_fn(
-                        params, toks[i:i + 1], pos, pool, row)
+                        params, toks[i:i + 1], pos, pool, row, rows=1)
                     pos += 1
                 return logits.argmax(-1).to(i32), pool
 
@@ -662,6 +678,35 @@ class ContinuousBatchingEngine:
                            (params_abs, toks_abs, pos_abs, bt_abs, pool_abs,
                             np.zeros((B,), np.int32), delta_abs),
                            inplace=(1, 2, 3, 4))
+        if self.role != "mixed":
+            # cross-replica KV handoff: a prefill replica gathers a lane's
+            # pages into the fixed-width staging buffer (a d2h read
+            # follows); a decode replica scatters staged pages into freshly
+            # allocated pages of its own pool and installs the lane's token
+            # and position.  Padding ids (``NP``) are clamped on extraction
+            # and sent to the sink on installation
+            ids_w = np.zeros((max_blocks,), np.int32)
+            self._xfer_abs = tree_map(
+                lambda l: torch.empty((max_blocks,) + tuple(l.shape[1:]),
+                                      dtype=l.dtype, device=meta), pool_abs)
+
+            def xfer_extract(pool, page_ids):
+                return extract_pool_pages(pool, page_ids)
+
+            def xfer_install(pool, staged, page_ids):
+                return install_pool_pages(pool, staged, page_ids)
+
+            def lane_set(toks, pos, tok, p, slot):
+                toks[int(slot), 0] = int(tok)
+                pos[int(slot)] = int(p)
+                return toks, pos
+
+            self._register("xfer_extract", xfer_extract, (pool_abs, ids_w))
+            self._register("xfer_install", xfer_install,
+                           (pool_abs, self._xfer_abs, ids_w), inplace=(0,))
+            self._register("lane_set", lane_set,
+                           (toks_abs, pos_abs, np.int32(0), np.int32(0),
+                            np.int32(0)), inplace=(0, 1))
         if self.spec is not None:
             self._setup_spec(params_abs, toks_abs, pos_abs, bt_abs, pool_abs)
         if not restore:
@@ -672,6 +717,8 @@ class ContinuousBatchingEngine:
             cl.clCreateBuffer("block_table", bt_abs)
             cl.clCreateBuffer("kv_pool", pool_abs, paged=True)
             cl.clCreateBuffer("pf_tok", pf_tok_abs)
+            if self.role != "mixed":
+                cl.clCreateBuffer("xfer_pages", self._xfer_abs)
             if kf > 1:
                 cl.clCreateBuffer("fused_toks", empty(B, kf))
             if self._staged():
@@ -2071,14 +2118,155 @@ class ContinuousBatchingEngine:
                     self._g_prefix.set(float("nan"))
         return reqs
 
+    # ------------------------------------------------------------------
+    # Disaggregated serving: the KV lane handoff between role replicas
+    # ------------------------------------------------------------------
     def attach_transfer(self, queue) -> None:
-        raise _not_ported("the KV lane handoff (attach_transfer)")
+        """Join a ``TransferQueue``: the prefill side offers freshly
+        prefilled lanes, the decode side drains them.  Needs a declared
+        role: mixed engines never hand lanes off."""
+        if self.role == "mixed":
+            raise ValueError("attach_transfer needs role='prefill' or "
+                             "'decode'")
+        self.transfer = queue
+        queue.register(self)
 
-    def export_lane(self, st) -> Any:
-        raise _not_ported("the KV lane handoff (export_lane)")
+    def exportable_lanes(self) -> List[_SlotState]:
+        """Active lanes a prefill replica could hand off now: the first
+        token is committed, no EXECUTE in flight references the lane, every
+        submitted token is committed, the request has tokens left to
+        generate and no prefix insert is parked on it.  A lane that missed
+        the window keeps decoding here and is offered again at the next
+        step boundary."""
+        out = []
+        for slot in sorted(self._active):
+            st = self._active[slot]
+            if (st.tokens and st.inflight == 0
+                    and st.submitted == len(st.tokens)
+                    and len(st.tokens) < st.limit
+                    and st.deferred_insert is None):
+                out.append(st)
+        return out
+
+    def export_lane(self, st: _SlotState):
+        """Serialize an in-flight lane for a decode replica: gather its
+        pages into the staging buffer (one EXECUTE), read them back to the
+        host, then release the lane (committed pages donated to the prefix
+        tree first, as at retirement; the slot frees).  The request is not
+        completed here: the importer continues it mid-decode."""
+        from repro_torch.serve.disagg import KVHandoff
+
+        rid = st.req.rid
+        ids = np.full((self.max_blocks,), self.pool_pages, np.int32)
+        ids[:len(st.blocks)] = st.blocks
+        xsp = (st.req.trace.span("engine.handoff_out",
+                                 engine=self.engine_id, slot=st.slot,
+                                 pages=len(st.blocks))
+               if st.req.trace is not None else None)
+        self._exec("xfer_extract", ("kv_pool",), ("xfer_pages",),
+                   const_args=(ids,), span=xsp)
+        # the monitor's d2h copy: CPU tensors, shared with nothing that
+        # writes them (the buffer's next read makes a new copy)
+        pages = self._read("xfer_pages", span=xsp)
+        if xsp is not None:
+            xsp.end()
+        handoff = KVHandoff(
+            req=st.req, rid=rid, tokens=st.tokens, tbts=st.tbts,
+            pos=st.pos, bucket=st.bucket, limit=st.limit,
+            n_pages=len(st.blocks), pages=pages, admit_t=st.admit_t,
+            first_token_t=self._first_token.get(rid, st.first_token_t),
+            last_token_t=st.last_token_t,
+            src_engine=self.engine_id, export_t=self._clock())
+        if self.prefix is not None and st.blocks:
+            # the handed-off request's own OOM recompute (or a sibling
+            # prompt) still hits here
+            self._donate_committed(st)
+        self.pool.free(st.blocks)
+        self._bt_clear_row(st.slot)
+        self._active.pop(st.slot, None)
+        heapq.heappush(self._free, st.slot)
+        self._first_token.pop(rid, None)
+        if st.span is not None:
+            st.span.annotate(handed_off=True, tokens=len(st.tokens)).end()
+        self.registry.record_event("engine_handoff_out", rid=rid,
+                                   slot=st.slot, engine=self.engine_id,
+                                   pages=handoff.n_pages)
+        return handoff
 
     def import_lane(self, handoff) -> bool:
-        raise _not_ported("the KV lane handoff (import_lane)")
+        """Install a handed-off lane: allocate pages, upload and scatter the
+        staged pages (whole pages overwritten, so no scrub), set the lane's
+        token and position, and resume decode mid-request.  Returns False,
+        with no side effect, when there is no slot or page room."""
+        if not self._free:
+            return False
+        n = handoff.n_pages
+        if n > self.max_blocks or not self.pool.can_admit(n):
+            return False
+        page_ids = self.pool.alloc(n)
+        if page_ids is None:
+            return False
+        page_ids = [int(p) for p in page_ids]
+        self._virgin_pages.difference_update(page_ids)
+        slot = heapq.heappop(self._free)
+        # the row ships with the next decode EXECUTE (block-table delta),
+        # after the install and lane_set below in the monitor's FIFO
+        self._bt_set_row(slot, page_ids)
+        try:
+            imp = (handoff.req.trace.span("engine.handoff_in",
+                                          engine=self.engine_id, slot=slot,
+                                          pages=n)
+                   if handoff.req.trace is not None else None)
+            W = self.max_blocks
+
+            def fit(leaf):
+                # replicas may be provisioned with different max_blocks:
+                # pad or trim the staging width (padding never installs:
+                # its ids go to the sink)
+                if leaf.shape[0] >= W:
+                    return leaf[:W]
+                pad = torch.zeros((W - leaf.shape[0],) + tuple(leaf.shape[1:]),
+                                  dtype=leaf.dtype)
+                return torch.cat([leaf, pad], 0)
+
+            staged = tree_map(fit, handoff.pages)
+            ids = np.full((W,), self.pool_pages, np.int32)
+            ids[:n] = page_ids
+            self._write("xfer_pages", staged, span=imp)
+            self._exec("xfer_install", ("kv_pool", "xfer_pages"),
+                       ("kv_pool",), const_args=(ids,), donate=True,
+                       dirty_pages={"kv_pool": tuple(page_ids)}, span=imp)
+            self._exec("lane_set", ("toks", "pos"), ("toks", "pos"),
+                       const_args=(np.int32(handoff.tokens[-1]),
+                                   np.int32(handoff.pos), np.int32(slot)),
+                       donate=True, span=imp)
+            if imp is not None:
+                imp.end()
+        except BaseException:
+            self.pool.free(page_ids)
+            self._bt_clear_row(slot)
+            heapq.heappush(self._free, slot)
+            raise
+        st = _SlotState(req=handoff.req, slot=slot, tokens=handoff.tokens,
+                        tbts=handoff.tbts, admit_t=handoff.admit_t,
+                        first_token_t=handoff.first_token_t,
+                        last_token_t=handoff.last_token_t,
+                        limit=handoff.limit, bucket=handoff.bucket,
+                        pos=handoff.pos, blocks=page_ids,
+                        submitted=len(handoff.tokens),
+                        span=(handoff.req.trace.span(
+                            "engine.decode", engine=self.engine_id,
+                            slot=slot, imported=True)
+                            if handoff.req.trace is not None else None))
+        handoff.req.committed = st.tokens   # re-alias: crash replay
+        # seed the TTFT ledger so neither this engine's commits nor an
+        # OOM-preempt recompute here observe TTFT a second time
+        self._first_token[handoff.req.rid] = handoff.first_token_t
+        self._active[slot] = st
+        self.registry.record_event("engine_handoff_in",
+                                   rid=handoff.req.rid, slot=slot,
+                                   engine=self.engine_id, pages=n)
+        return True
 
     def run_until_drained(self, max_iterations: int = 100000) -> None:
         while not self.idle:
@@ -2100,12 +2288,24 @@ class ContinuousBatchingEngine:
             # can steer repeat prefixes here (idempotent)
             router.register_prefix_probe(self.engine_id,
                                          self.prefix_match_len)
+        reg_role = getattr(router, "register_engine_role", None)
+        if reg_role is not None and admit:
+            # declare this replica's role, so the router sends fresh
+            # prompts to prefill replicas only (idempotent)
+            reg_role(self.engine_id, self.role, self.buckets)
+        if self.transfer is not None and self.role == "decode":
+            # install admitted handoffs into free slots before stepping
+            self.transfer.pump_dest(self)
         if admit:
             for req in router.pop(len(self._free), engine_id=self.engine_id):
                 self.submit(req)
         moved = bool(self._active or self.pending)
         if moved:
             self.step()
+        if self.transfer is not None and self.role == "prefill":
+            # offer freshly prefilled lanes at the step boundary; lanes the
+            # queue refuses keep decoding here (aggregated fallback)
+            self.transfer.pump_source(self)
         for rec in self.drain_completions():
             router.complete(rec)
         return moved

@@ -335,15 +335,12 @@ def test_unported_features_raise():
     mk = lambda **kw: ContinuousBatchingEngine(  # noqa: E731
         "yi-9b-smoke", FunkyCL(mon), slots=2, prompt_len=PROMPT_LEN,
         max_new_tokens=4, page_size=PAGE, **kw)
+    # the roles and the lane handoff are ported (tests/test_torch_disagg.py):
+    # role replicas construct, and a mixed engine refuses a transfer queue
     for role in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            mk(role=role)
-    eng = mk()
-    for call in (lambda: eng.attach_transfer(None),
-                 lambda: eng.export_lane(None),
-                 lambda: eng.import_lane(None)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+        assert mk(role=role).role == role
+    with pytest.raises(ValueError, match="attach_transfer needs role"):
+        mk().attach_transfer(None)
     with pytest.raises(ValueError):
         mk(fuse_steps=0)
     with pytest.raises(ValueError):       # SSM states have no pages

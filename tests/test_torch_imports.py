@@ -4,7 +4,8 @@
 reference package; ``chip_smoke.py`` and ``train_memory.py`` import
 neither.  Nothing picks the CPU on its own: a CUDA request on a host
 without a card raises, and a missing ``nvcc`` is an error, never a
-fallback.
+fallback.  ``chip_smoke.py``'s ``disagg`` phase rehearses on the CPU at
+smoke size.
 """
 
 import ast
@@ -39,7 +40,8 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.train.train_step", "repro_torch.core.tasks",
              "repro_torch.models.transformer", "repro_torch.testing",
              "repro_torch.obs", "repro_torch.obs.tracer",
-             "repro_torch.obs.export", "repro_torch.serve.prefix_cache"}
+             "repro_torch.obs.export", "repro_torch.serve.prefix_cache",
+             "repro_torch.serve.disagg"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -151,3 +153,22 @@ def test_every_kernel_source_is_built():
     assert len(paths) == 4
     for n in build.SOURCES:
         assert (build.CSRC / f"{n}.cu").exists()
+
+
+def test_chip_smoke_disagg_phase_rehearses_on_the_cpu():
+    """The ``disagg`` phase's code path at smoke size on the CPU: the pair
+    serves the mixed engine's tokens, two transfers torn and replayed
+    (launch counts are gated on the card only)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    chip_smoke.phase_disagg(state, device="cpu", cut=dict(
+        arch="yi-9b-smoke", page_size=4, n_requests=6, ref_pool=None,
+        prompt_buckets=(8, 16), prompt_len=16, max_new_tokens=4,
+        decode_slots=4))
+    d = state["disagg"]
+    assert d["a"]["handoff_total"] >= 1 and d["b"]["torn"] == 2
+    assert d["a"]["requests"] == d["b"]["requests"] == 6

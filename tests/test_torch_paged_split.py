@@ -67,11 +67,15 @@ def test_every_mapped_page_belongs_to_exactly_one_cta(B, Hkv, mb, ps):
 
 def test_the_paths_routes():
     """The engine's decode takes 5-CTA clusters of 8 pages (two tiles a
-    warp), verify's window 3-CTA clusters of 4 pages (one tile a warp);
-    prefill_chunk's one lane one CTA."""
+    warp), and so do the disaggregated replicas' (2 lanes over 36 pages,
+    14 over 37, each padded to 16 rows); verify's window 3-CTA clusters of
+    4 pages (one tile a warp); prefill_chunk's one lane one CTA."""
     assert paged_plan(8, 4, 36, 16, BF16, H100_SMS) == ("cluster", 128, 5)
+    assert paged_plan(2, 4, 36, 16, BF16, H100_SMS) == ("cluster", 128, 5)
+    assert paged_plan(14, 4, 37, 16, BF16, H100_SMS) == ("cluster", 128, 5)
     assert paged_plan(1, 4, 5, 16, BF16, H100_SMS) == ("single", 80, 1)
     assert paged_plan(8, 4, 11, 16, BF16, H100_SMS) == ("cluster", 64, 3)
+    assert paged_plan(16, 4, 37, 16, BF16, H100_SMS) == ("cluster", 128, 5)
     # f32 keeps the slot split over the table
     assert paged_plan(8, 4, 36, 16, torch.float32, H100_SMS)[0] == "slots"
 
@@ -86,8 +90,12 @@ def test_route_depends_only_on_static_shapes():
     at = SINGLE_TILES * TILE // 16
     assert paged_plan(8, 4, at, 16, BF16, H100_SMS)[0] == "single"
     assert paged_plan(8, 4, at + 1, 16, BF16, H100_SMS)[0] == "cluster"
-    # a batch that fills the card takes one CTA a (lane, kv head)
-    assert paged_plan(64, 8, 200, 16, BF16, H100_SMS)[0] == "single"
+    # the bf16 split does not depend on the batch, the kv heads or the
+    # card: a lane decodes to the same bits in any replica
+    for mb in (at + 1, 36, 200, 5000):
+        assert len({paged_plan(B, Hkv, mb, 16, BF16, sms)
+                    for B in (1, 2, 8, 14, 64) for Hkv in (1, 4, 8)
+                    for sms in (78, 132)}) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -207,3 +215,29 @@ def test_lane_output_depends_only_on_its_own_row_and_pages():
         b = decode_attention_paged_split_ref(q2, k2, v2, kvp2, bt2, pos2,
                                              chunk=chunk, cluster=cluster)
         assert torch.equal(a[0], b[0]), route
+
+
+@pytest.mark.parametrize("mb_other", [36, 37])
+def test_lane_output_is_the_same_in_any_replica(mb_other):
+    """A lane's mirror output keeps its bits across the batch it decodes
+    in (2, 8 or 14 lanes) and the replica's table width (36 pages of 16,
+    or 37 with fused decode's headroom): the disaggregated pair hands a
+    lane between such replicas and must not change a token."""
+    Hq, Hkv, hd, ps, NP = 8, 2, 16, 16, 700
+    pos0 = 517
+    q, k, v, kvp, bt, posv = paged_case(14, ps, 37, NP, Hq, Hkv, hd,
+                                        [pos0] + [int(p) for p in
+                                                  np.random.default_rng(3)
+                                                  .integers(0, 580, 13)])
+    args = [torch.from_numpy(x) for x in (q, k, v, kvp, bt, posv)]
+    args[:3] = [a.to(BF16) for a in args[:3]]
+    outs = []
+    for B, mb in ((8, 36), (2, 36), (14, mb_other)):
+        qb, tk, tv, tkp, tbt, tpos = args
+        row = tbt[:B, :mb].clone()
+        _, chunk, cluster = paged_plan(B, Hkv, mb, ps, BF16, H100_SMS)
+        out = decode_attention_paged_split_ref(
+            qb[:B], tk, tv, tkp, row, tpos[:B], chunk=chunk,
+            cluster=cluster)
+        outs.append(out[0])
+    assert all(torch.equal(outs[0], o) for o in outs[1:])

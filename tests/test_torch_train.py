@@ -271,14 +271,20 @@ def _assert_grads_close(ours, ref, tol):
 
 def grads_against_reference(arch, device):
     """The port's loss and gradients on ``device`` against the reference's
-    on the CPU, with and without a loss mask."""
+    on the CPU, with and without a loss mask.  The reference runs at JAX's
+    highest matmul precision: at its default, an XLA CPU backend may round
+    f32 dot operands, and on one H100 host that moved the reference's smoke
+    loss 1.6e-5 off the float64 value, which the card matches
+    (``test_card_f32_loss_and_grads_against_float64``)."""
     jb, jp, tb, tp = _shared(arch)
     tp = tree_map(lambda t: t.to(device), tp)
     jvg = jax.jit(jax.value_and_grad(jb.loss_fn, has_aux=True))
     vg = value_and_grad(tb)
     full = _batch()
     for batch in ({k: full[k] for k in ("tokens", "targets")}, full):
-        (jl, _), jg = jvg(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+        with jax.default_matmul_precision("highest"):
+            (jl, _), jg = jvg(jp, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
         g, loss, _ = vg(tp, batch)
         assert abs(float(loss) - float(jl)) <= LOSS_REL_TOL * abs(float(jl))
         _assert_grads_close(tree_map(lambda t: t.cpu(), g), jg,
@@ -464,15 +470,17 @@ def cuda():
 @pytest.mark.gpu
 def test_grad_step_and_apply_on_card_match_reference(cuda):
     """One ``grad_step`` and one ``apply`` of yi-9b-smoke in f32 on the
-    card against the reference on the CPU (no TF32)."""
+    card against the reference on the CPU (no TF32 on the card; the
+    reference at its highest matmul precision)."""
     assert not torch.backends.cuda.matmul.allow_tf32
     grads_against_reference("yi-9b-smoke", cuda)
     jb, jp, tb, tp = _shared("yi-9b-smoke")
     jcfg = JOptConfig(warmup_steps=2, decay_steps=100)
     tcfg = OptConfig(warmup_steps=2, decay_steps=100)
     batch = {k: v for k, v in _batch(B=2).items() if k != "loss_mask"}
-    jg = jax.grad(lambda p: jb.loss_fn(p, batch)[0])(jp)
-    jp2, _, _ = japply(jcfg, jp, jg, jinit_opt(jcfg, jp))
+    with jax.default_matmul_precision("highest"):
+        jg = jax.grad(lambda p: jb.loss_fn(p, batch)[0])(jp)
+        jp2, _, _ = japply(jcfg, jp, jg, jinit_opt(jcfg, jp))
     grad_init, grad_step, apply_step = make_chunked_train_fns(tb, tcfg)
     tp = tree_map(lambda t: t.to(cuda), tp)
     acc, _ = grad_step(tp, grad_init(tp), batch)
@@ -485,3 +493,38 @@ def test_grad_step_and_apply_on_card_match_reference(cuda):
         err = np.abs(a.cpu().numpy() - b)
         assert (err <= APPLY_TOL).mean() >= 0.999
         assert err.max() <= 2.2 * lr
+
+
+@pytest.mark.gpu
+def test_card_f32_loss_and_grads_against_float64(cuda):
+    """The f32 smoke loss and gradients on the card against the port's own
+    float64 values on the CPU (the exact answer at f32's precision), beside
+    the reference's f32 loss on this host's CPU at JAX's default and at its
+    highest matmul precision.  Prints one JSON line of the losses (run with
+    ``-s``): which of card and reference moved off the exact answer."""
+    import json
+
+    jb, jp, tb, tp = _shared("yi-9b-smoke")
+    batch = {k: v for k, v in _batch().items() if k != "loss_mask"}
+    vg = value_and_grad(tb)
+    g, loss, _ = vg(tree_map(lambda t: t.to(cuda), tp), batch)
+    g64, loss64, _ = vg(tree_map(
+        lambda t: t.double() if t.is_floating_point() else t, tp), batch)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jl = float(jb.loss_fn(jp, jbatch)[0])
+    with jax.default_matmul_precision("highest"):
+        jl_hi = float(jb.loss_fn(jp, jbatch)[0])
+    exact = float(loss64)
+    rel = {k: abs(v - exact) / abs(exact) for k, v in (
+        ("card", float(loss)), ("reference", jl),
+        ("reference_highest", jl_hi))}
+    print(json.dumps({"loss_f64": exact, "card": float(loss),
+                      "reference": jl, "reference_highest": jl_hi,
+                      "rel_gap": rel}))
+    assert rel["card"] <= LOSS_REL_TOL, rel
+    # the reference at its highest precision is the exact answer too, which
+    # is why grads_against_reference runs it there
+    assert rel["reference_highest"] <= LOSS_REL_TOL, rel
+    for a, b in zip(tree_leaves(g), tree_leaves(g64)):
+        err = (a.cpu().double() - b).abs().max().item()
+        assert err <= GRAD_REL_TOL * max(b.abs().max().item(), 1e-30)
