@@ -12,7 +12,9 @@ caught):
    parallel ``nvcc`` build of every kernel from ``src/repro_torch/kernels``;
 2. kernels against their plain PyTorch versions on the card, at the serving
    paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
-   yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K1's paged
+   yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K2, K1 and
+   K1 paged at stablelm-3b's (hd 80, 32/32 heads), starcoder2-15b's
+   (group 12) and, in bf16, qwen3-8b's (32/8), K1's paged
    entry at the engine's decode shape (8 lanes at ragged positions over
    pages of 16 scattered through a 288-page pool, and the 8 idle rows that
    pad the decode to 16 rows), K3 at mamba2-1.3b's
@@ -110,7 +112,16 @@ caught):
    ``grad_step`` on the card against the CPU in f32 (2 layers, seq 256).
    Gates: (b) equals (a) bit for bit, (c) equals (b), each (d) an
    uninterrupted run; (e) within 1e-5 (loss) and 1e-4 (gradients); no
-   kernel launched; under 150 s and 45 GB.
+   kernel launched; under 150 s and 45 GB;
+20. the remaining dense archs (``phase_dense_archs``, budget 200 s,
+   gated): qwen3-8b, stablelm-3b and starcoder2-15b at full width and
+   depth, one after another: (a) served through the runtime (batch 8,
+   prompt 512, 32 tokens; K2 L per prefill, K1 L per token), (b) kernel
+   path against plain path, (c) the engine phase's configuration on its
+   first 8 requests through RequestRouter -> EngineServeTask, single-step
+   and 8 fused with one EXECUTE ahead (same tokens; K2 L per admission,
+   K1 paged L per decode step, dense K1 never), then a paged decode
+   step's and each bucket's prefill's logits within LOGIT_REL_TOL.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -164,7 +175,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
-          "disagg", "cri", "orch", "train")
+          "disagg", "cri", "orch", "train", "dense_archs")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -177,6 +188,11 @@ PATHS = {
     "mamba2": ("mamba2-1.3b", 1024, {"K3": 48}, {}),
     "recurrentgemma": ("recurrentgemma-9b", 2560, {"K4": 26, "K2": 12},
                        {"K1": 12}),
+    # the dense_archs phase: qk-norm; LayerNorm, hd 80 (MHA); LayerNorm,
+    # GELU, group 12
+    "qwen3": ("qwen3-8b", 512, {"K2": 36}, {"K1": 36}),
+    "stablelm": ("stablelm-3b", 512, {"K2": 32}, {"K1": 32}),
+    "starcoder2": ("starcoder2-15b", 512, {"K2": 40}, {"K1": 40}),
 }
 
 
@@ -530,9 +546,36 @@ def _gather_dense(q, k, v, kvp, bt, posv):
     return torch.cat(outs)
 
 
+def _gathered_sdpa_sets(sets, kvp, bt, posv, window):
+    """SDPA's operands for the paged yardstick: every lane's pages gathered
+    beforehand (``gather_lane``) into (B, H, slots, hd) with a (B, 1, 1,
+    slots) mask of its kept slots; the gather is not timed.  An inactive
+    lane keeps no slot (SDPA gives it NaN; the kernel zeros)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ref import gather_lane
+
+    out = []
+    for q, k, v in sets:
+        ks, vs, keep = [], [], []
+        for b in range(q.shape[0]):
+            kd, vd, kp = gather_lane(k, v, kvp, bt[b])
+            ks.append(kd)
+            vs.append(vd)
+            p = posv[b]
+            keep.append((kp <= p) & ((p - kp < window) if window
+                                     else torch.ones_like(kp, dtype=bool)))
+        out.append((q.transpose(1, 2).contiguous(),
+                    torch.cat(ks).transpose(1, 2).contiguous(),
+                    torch.cat(vs).transpose(1, 2).contiguous(),
+                    torch.stack(keep)[:, None, None, :]))
+    return out
+
+
 def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
                 inactive=(), window=0, time_it=False):
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_paged, paged_plan, sm_count)
@@ -579,6 +622,8 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
         args = [(q, k, v) for q, k, v in sets]
         kern = lambda q, k, v: decode_attention_paged(  # noqa: E731
             q, k, v, kvp, bt, posv, **kw)
+        lib = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=m, enable_gqa=True)
         rec.update(
             ms=bench_ms(kern, args),
             device_ms=device_ms(kern, args, expect="decode_split_kernel"
@@ -588,7 +633,11 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
                 q, k, v, kvp, bt, posv, **kw), args, reps=5),
             gather_dense_ms=device_ms(lambda q, k, v: _gather_dense(
                 q, k, v, kvp, bt, posv), args),
-            library_ms=None, bytes=nbytes, flops=flops, bound_ms=bound,
+            # no PyTorch call reads pages in place: SDPA on lanes gathered
+            # beforehand is the yardstick, the gather untimed
+            library_ms=None, library_gathered_device_ms=device_ms(
+                lib, _gathered_sdpa_sets(sets[:4], kvp, bt, posv, window)),
+            bytes=nbytes, flops=flops, bound_ms=bound,
             bound_by="operations" if flops / PEAK_FLOP_S[dtype]
             > nbytes / PEAK_BYTES_S else "bytes")
     log(phase="kernels", kernel="K1 decode_attention_paged", **rec)
@@ -857,6 +906,25 @@ def phase_kernels(state):
     _decode_case(state, "reserved", 8, 160, 32, 4, 128,
                  [131, 140, 159, 129, 133, 147, 128, 150], "bfloat16",
                  time_it=True)
+    # the dense_archs phase's shapes, bf16 and f32: stablelm-3b (hd 80 over
+    # 32/32 heads, MHA: K1's rows padded to 128 in shared memory, K2's
+    # second 64-column sub-tile zero past column 80, scale 80^-0.5) and
+    # starcoder2-15b (48/4: group 12, two 8-head n-tiles in K1 paged); K2
+    # at the serving prefill, K1 dense at its decode (cap 512 + 128, pos
+    # 600), K1 paged at the engine's decode (16 rows: 8 lanes, 8 idle);
+    # qwen3-8b's (32/8) in bf16
+    for tag, Hq, Hkv, hd, dtypes in (
+            ("hd80", 32, 32, 80, ("bfloat16", "float32")),
+            ("g12", 48, 4, 128, ("bfloat16", "float32")),
+            ("qwen3", 32, 8, 128, ("bfloat16",))):
+        for dt in dtypes:
+            case = f"{tag}_path" + ("_f32" if dt == "float32" else "")
+            _flash_case(state, case, 8, 512, Hq, Hkv, hd, dt, time_it=True)
+            _decode_case(state, case, 8, 640, Hq, Hkv, hd, 600, dt,
+                         time_it=True)
+            _paged_case(state, case, 16, 16, 36, 288, Hq, Hkv, hd,
+                        ENGINE_PAGED_POS + [0] * 8, dt,
+                        inactive=tuple(range(8, 16)), time_it=True)
     # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
     # 256; bf16 takes the mma route, f32 the CUDA cores), a ragged S, a
     # chunk that is not a multiple of the mma route's 64-row block, and the
@@ -924,14 +992,18 @@ def _counts():
             "K1p_b1": decode_attention_paged.launches_b1}
 
 
-def _serve(state, key):
+def _serve(state, key, device="cuda", arch=None, prompt_len=None):
+    """``PATHS[key]`` served to DONE through the runtime, with its exact
+    launch counts on the card; ``arch`` and ``prompt_len`` override the
+    path's (a rehearsal on the CPU, where the wrappers launch nothing)."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.core import (FunkyRuntime, SliceAllocator, TaskImage,
                                   TaskStatus)
 
-    arch, prompt_len, per_prefill, per_token = PATHS[key]
+    p_arch, p_len, per_prefill, per_token = PATHS[key]
+    arch, prompt_len = arch or p_arch, prompt_len or p_len
     cfg = get_arch(arch)
     im = TaskImage(name="chip-smoke", kind="serve", arch=arch,
                    prompt_len=prompt_len, global_batch=8, total_steps=4,
@@ -939,9 +1011,10 @@ def _serve(state, key):
     n_tok = im.total_steps * im.tokens_per_step
     rt = FunkyRuntime("node0", SliceAllocator("node0", 1,
                                               mem_cap_bytes=64 << 30,
-                                              device="cuda"))
+                                              device=device))
     wrappers = _wrappers()
-    torch.cuda.reset_peak_memory_stats()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -955,7 +1028,7 @@ def _serve(state, key):
         raise RuntimeError(f"serve task ended {status}: {rec.error!r}")
     expected = {k: per_prefill.get(k, 0) + n_tok * per_token.get(k, 0)
                 for k in wrappers}
-    if launches != expected:
+    if device == "cuda" and launches != expected:
         raise AssertionError(f"{arch}: launch counts {launches}, expected "
                              f"{expected} (one prefill, {n_tok} tokens)")
     last = rec.guest_state.user["last_token"]
@@ -972,11 +1045,16 @@ def _serve(state, key):
         status=status.value, wall_s=wall, init_params_s=ex[0],
         prefill_s=ex[1], decode_token_s_median=statistics.median(decode_s),
         decode_tokens_per_s=im.global_batch * n_tok / sum(decode_s),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+        if device == "cuda" else None,
         launches=launches, last_token=last)
     rt.delete("serve0")
     del rec, rt
-    _free_cuda()
+    if device == "cuda":
+        _free_cuda()
+    return {"wall_s": wall, "prefill_s": ex[1],
+            "decode_token_s_median": statistics.median(decode_s),
+            "decode_tokens_per_s": im.global_batch * n_tok / sum(decode_s)}
 
 
 def phase_serve(state):
@@ -995,7 +1073,7 @@ def phase_serve_recurrentgemma(state):
 # 4. kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
-def _logit_parity(cfg, S, alt=None):
+def _logit_parity(cfg, S, alt=None, device="cuda"):
     """The kernel path and the plain path (and ``alt``, a plain path that
     differs from it only in the order of its sums) on one set of weights:
     prefill, then 4 decode steps of the kernel path's tokens.  Returns the
@@ -1012,9 +1090,9 @@ def _logit_parity(cfg, S, alt=None):
                                     decode_impl="naive")}
     if alt is not None:
         bundles["alt"] = alt
-    params = bundles["kernel"].init(SEED, device="cuda")
+    params = bundles["kernel"].init(SEED, device=device)
     toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
-                                      0)["tokens"]).cuda()
+                                      0)["tokens"]).to(device)
     rels = {k: [] for k in bundles if k != "plain"}
     agree = []
     with torch.no_grad():
@@ -1039,9 +1117,11 @@ def _logit_parity(cfg, S, alt=None):
     return params, rels, agree
 
 
-def _parity(state, key):
-    """yi-9b: the served bf16 model, kernel path within LOGIT_REL_TOL of
-    the plain path.  mamba2-1.3b and recurrentgemma-9b: in f32, within
+def _parity(state, key, device="cuda", arch=None):
+    """yi-9b and the dense_archs phase's archs: the served bf16 model,
+    kernel path within LOGIT_REL_TOL of the plain path (``arch``
+    overrides the path's, a rehearsal on the CPU).  mamba2-1.3b and
+    recurrentgemma-9b: in f32, within
     PARITY_F32_TOL; in bf16, within LOGIT_REL_TOL or twice the plain path's
     own spread under a reordering of its sums, whichever is larger (at full
     width these random-weight models amplify one bf16 rounding flip per
@@ -1053,11 +1133,12 @@ def _parity(state, key):
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
-    if torch.cuda.memory_allocated() > 1e9:
+    if device == "cuda" and torch.cuda.memory_allocated() > 1e9:
         raise RuntimeError("an earlier phase's weights are still on the card")
-    arch, S = PATHS[key][:2]
+    p_arch, S = PATHS[key][:2]
+    arch = arch or p_arch
     cfg = get_arch(arch)
-    if key != "yi":
+    if key in ("mamba2", "recurrentgemma"):
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params, rels, agree = _logit_parity(cfg32, S)
         log(phase="parity", arch=arch, dtype="float32",
@@ -1076,7 +1157,7 @@ def _parity(state, key):
     elif key == "recurrentgemma":   # online-softmax attention, 512-key blocks
         alt = build_model(cfg, prefill_impl="blockwise", decode_impl="naive",
                           prefill_chunk=512)
-    params, rels, agree = _logit_parity(cfg, S, alt)
+    params, rels, agree = _logit_parity(cfg, S, alt, device)
     bounds = [max(LOGIT_REL_TOL, 2 * r) for r in rels.get("alt", [0.0] * 5)]
     log(phase="parity", arch=arch, dtype=cfg.dtype,
         logit_rel_err=rels["kernel"], token_agreement=agree,
@@ -1084,8 +1165,12 @@ def _parity(state, key):
     if any(r > b for r, b in zip(rels["kernel"], bounds)):
         raise AssertionError(f"{arch}: kernel vs plain logits differ by "
                              f"{rels['kernel']} (bounds {bounds})")
-    state["full_params"] = (key, params)     # reused by the profile phase
-    _free_cuda()
+    if key in ("yi", "mamba2", "recurrentgemma"):
+        state["full_params"] = (key, params)     # reused by the profile phase
+    del params
+    if device == "cuda":
+        _free_cuda()
+    return {"logit_rel_err": rels["kernel"], "token_agreement": agree}
 
 
 def phase_parity(state):
@@ -1336,20 +1421,20 @@ def engine_requests(vocab, n=ENGINE["n_requests"]):
     return out
 
 
-def _engine_kw():
-    return dict(slots=ENGINE["slots"], prompt_len=ENGINE["prompt_len"],
-                max_new_tokens=ENGINE["max_new_tokens"],
-                page_size=ENGINE["page_size"],
-                pool_pages=ENGINE["pool_pages"],
-                prompt_buckets=ENGINE["prompt_buckets"])
+def _engine_kw(ec=ENGINE):
+    return dict(slots=ec["slots"], prompt_len=ec["prompt_len"],
+                max_new_tokens=ec["max_new_tokens"],
+                page_size=ec["page_size"], pool_pages=ec["pool_pages"],
+                prompt_buckets=ec["prompt_buckets"])
 
 
-def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device):
+def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device,
+                      ec=ENGINE):
     """Every request completed with its token count; the kernels the path
     launched, exactly: paged K1 once a layer per decode step run, K2 once a
     layer per prefill run (recomputations included), nothing else."""
-    want = {r.rid: min(r.max_new_tokens, ENGINE["max_new_tokens"])
-            for r in engine_requests(cfg.vocab_size)}
+    want = {r.rid: min(r.max_new_tokens, ec["max_new_tokens"])
+            for r in engine_requests(cfg.vocab_size, ec["n_requests"])}
     got = {rid: len(t) for rid, t in tokens.items()}
     if got != want:
         raise AssertionError(f"engine {tag}: token counts {got}, expected "
@@ -1411,8 +1496,9 @@ def _engine_stats(eng, completed, wall, steps, prefills, launches):
             "launches": launches}
 
 
-def _engine_served(arch, device, fuse, async_depth, tag):
-    """One run through the runtime: router -> EngineServeTask -> engine.
+def _engine_served(arch, device, fuse, async_depth, tag, ec=ENGINE):
+    """One run through the runtime: router -> EngineServeTask -> engine,
+    the first ``ec["n_requests"]`` requests on ``ec``'s lanes and pool.
     Returns ({rid: tokens}, stats)."""
     import torch
 
@@ -1425,12 +1511,10 @@ def _engine_served(arch, device, fuse, async_depth, tag):
     cfg = get_arch(arch)
     name = f"engine-{tag}"
     im = TaskImage(name=name, kind="engine-serve", arch=arch,
-                   global_batch=ENGINE["slots"],
-                   prompt_len=ENGINE["prompt_len"],
-                   max_new_tokens=ENGINE["max_new_tokens"],
-                   page_size=ENGINE["page_size"],
-                   kv_pool_pages=ENGINE["pool_pages"],
-                   prompt_buckets=ENGINE["prompt_buckets"],
+                   global_batch=ec["slots"], prompt_len=ec["prompt_len"],
+                   max_new_tokens=ec["max_new_tokens"],
+                   page_size=ec["page_size"], kv_pool_pages=ec["pool_pages"],
+                   prompt_buckets=ec["prompt_buckets"],
                    total_steps=10 ** 9, seed=SEED, fuse_steps=fuse,
                    async_depth=async_depth)
     reg = MetricsRegistry()
@@ -1454,7 +1538,7 @@ def _engine_served(arch, device, fuse, async_depth, tag):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    for r in engine_requests(cfg.vocab_size):
+    for r in engine_requests(cfg.vocab_size, ec["n_requests"]):
         router.submit(r)
     router.close()
     status = rt.wait("e", timeout=900)
@@ -1465,7 +1549,7 @@ def _engine_served(arch, device, fuse, async_depth, tag):
     eng = rec.task.engine
     tokens = {rid: list(c.tokens) for rid, c in router.completed.items()}
     steps, prefills = _check_engine_run(tag, cfg, eng, tokens, fuse,
-                                        launches, device)
+                                        launches, device, ec)
     stats = _engine_stats(eng, list(router.completed.values()), wall,
                           steps, prefills, launches)
     if device == "cuda":
@@ -3772,6 +3856,137 @@ def _train_card_vs_cpu(tc, base, device, names):
 
 
 # ---------------------------------------------------------------------------
+# 20. the remaining dense archs: qwen3-8b, stablelm-3b, starcoder2-15b
+# ---------------------------------------------------------------------------
+
+# each arch at full width and depth (bf16, weights from seed 0): (a) served
+# by FunkyRuntime -> ServeTask at its PATHS entry (batch 8, prompt 512, 32
+# tokens), (b) kernel path against plain path, (c) the engine phase's
+# configuration on the first ``n_requests`` of its requests through
+# RequestRouter -> EngineServeTask, single-step and 8 fused with one
+# EXECUTE ahead, then on a monitor to iteration ``logit_at`` for the logit
+# checks.  Cut: 8 of the 24 requests, no evict/resume run.
+DENSE_ARCHS = dict(keys=("qwen3", "stablelm", "starcoder2"), archs=None,
+                   serve_prompt=None, engine=dict(ENGINE, n_requests=8),
+                   logit_at=6, max_phase_s=200)
+
+
+def _dense_logit_checks(arch, device, ec, logit_at):
+    """The engine at ``ec`` on a monitor, stepped to iteration
+    ``logit_at`` with lanes in flight: one paged decode step's and each
+    bucket's B 1 prefill's kernel-path logits against the plain path's
+    (``_paged_logit_check``, ``_prefill_logit_check``; on the card only)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg = get_arch(arch)
+    mon = Monitor("dense-logits", SliceAllocator(
+        "node0", 1, mem_cap_bytes=64 << 30, device=device),
+        telemetry=MetricsRegistry())
+    try:
+        eng = ContinuousBatchingEngine(arch, FunkyCL(mon), seed=SEED,
+                                       engine_id="dense-logits",
+                                       **_engine_kw(ec))
+        eng.setup()
+        for r in engine_requests(cfg.vocab_size, ec["n_requests"]):
+            eng.submit(r)
+        for _ in range(logit_at):
+            eng.step()
+        if not eng.active_count:
+            raise AssertionError(f"{arch}: no lane in flight at iteration "
+                                 f"{logit_at}")
+        if device != "cuda":
+            return None, []
+        return (_paged_logit_check(eng, mon, cfg),
+                _prefill_logit_check(eng, mon, cfg))
+    finally:
+        mon.vfpga_exit()
+        del mon
+        if device == "cuda":
+            _free_cuda()
+
+
+def phase_dense_archs(state, device="cuda", cut=None):
+    """qwen3-8b (qk-norm), stablelm-3b (LayerNorm, rotary on a quarter of
+    hd 80, MHA) and starcoder2-15b (LayerNorm, GELU, group 12) at full
+    width, one after another, each freed before the next: (a) served
+    through the runtime with exact launch counts (``PATHS``), (b) kernel
+    path against plain path within LOGIT_REL_TOL, (c) the engine path of
+    ``DENSE_ARCHS`` (single-step and fused transcripts identical; K2 once a
+    layer per admission, K1 paged once a layer per decode step, dense K1
+    never; a paged decode step's and each bucket's prefill's logits within
+    LOGIT_REL_TOL).  The phase holds under ``max_phase_s``.  ``cut``
+    overrides ``DENSE_ARCHS`` (``archs`` and ``serve_prompt`` replace the
+    paths' archs and prompt: a rehearsal on the CPU at smoke size)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    dc = dict(DENSE_ARCHS, **(cut or {}))
+    ec, t_phase = dc["engine"], time.perf_counter()
+    archs = dc["archs"] or tuple(PATHS[k][0] for k in dc["keys"])
+    out, launches = {}, collections.Counter()
+    for key, arch in zip(dc["keys"], archs):
+        t_arch = time.perf_counter()
+        if device == "cuda":
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(arch)
+        a = _serve(state, key, device, arch, dc["serve_prompt"])
+        b = _parity(state, key, device, arch)
+        a_tok, ca = _engine_served(arch, device, 1, 0, f"{key}-a", ec)
+        b_tok, cb = _engine_served(arch, device, 8, 1, f"{key}-b", ec)
+        if b_tok != a_tok:
+            raise AssertionError(f"dense_archs {arch}: fused tokens differ "
+                                 f"from single-step: "
+                                 f"{_first_divergence(b_tok, a_tok)}")
+        check, prefill_checks = _dense_logit_checks(arch, device, ec,
+                                                    dc["logit_at"])
+        for run in (ca, cb):
+            launches.update(run["launches"])
+        L = cfg.num_layers
+        rec = {"arch": arch, "layers": L, "head_dim": cfg.head_dim_,
+               "heads": [cfg.num_heads, cfg.num_kv_heads],
+               "norm": cfg.norm_kind, "qk_norm": cfg.qk_norm,
+               "mlp": cfg.mlp_kind, "rope_pct": cfg.rope_pct,
+               "serve": a, "parity": b,
+               "engine": {run: {k: st[k] for k in (
+                   "wall_s", "ttft_p50_s", "ttft_p99_s",
+                   "decode_tokens_per_s", "tbt_req_mean_p50_s",
+                   "decode_steps", "prefills", "launches")}
+                   for run, st in (("a_single_step", ca),
+                                   ("b_fused8_async1", cb))},
+               "logit_check": check, "prefill_logit_check": prefill_checks,
+               "arch_s": time.perf_counter() - t_arch}
+        if check is not None:
+            rec["decode_step_warm_ms"] = check["decode_step_warm_s"] * 1e3
+            rec["decode_trace"] = check["decode_trace"]
+        if device == "cuda":
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(phase="dense_archs", card=state.get("card"), **rec)
+        out[key] = rec
+        if device == "cuda" and (
+                check["logit_rel_err"] > LOGIT_REL_TOL
+                or len(prefill_checks) != len(ec["prompt_buckets"])
+                or any(p["logit_rel_err"] > LOGIT_REL_TOL
+                       for p in prefill_checks)):
+            raise AssertionError(f"dense_archs {arch}: kernel vs plain "
+                                 f"logits: decode {check['logit_rel_err']}"
+                                 f", prefill {prefill_checks}")
+    stats = {"phase_s": time.perf_counter() - t_phase,
+             "launches": {k: launches.get(k, 0) for k in _wrappers()}}
+    log(phase="dense_archs", card=state.get("card"), summary=stats)
+    state.setdefault("launches", {})["dense_archs"] = stats["launches"]
+    state["dense_archs"] = {**out, **stats}
+    if device == "cuda" and stats["phase_s"] > dc["max_phase_s"]:
+        raise AssertionError(f"dense_archs: the phase took "
+                             f"{stats['phase_s']:.1f} s, over "
+                             f"{dc['max_phase_s']} s")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -3858,6 +4073,35 @@ def kernel_line(state):
             "library_ms": r.get("library_device_ms"),
             **({"gather_dense_ms": r["gather_dense_ms"]}
                if "gather_dense_ms" in r else {})})
+    # the dense_archs phase's shapes (bf16): K2 and K1 dense with their
+    # served path's launches, K1 paged with its engine runs' (K2's engine
+    # launches beside); stablelm-3b at hd 80, starcoder2-15b at group 12,
+    # qwen3-8b at 32/8
+    dense = state["dense_archs"]
+    for key, case in (("stablelm", "hd80_path"), ("starcoder2", "g12_path"),
+                      ("qwen3", "qwen3_path")):
+        eng = collections.Counter()
+        for run in dense[key]["engine"].values():
+            eng.update(run["launches"])
+        for kkey, name, kfile, line, launches, extra in (
+                ("k2", "flash_attention", "flash_attention", 95,
+                 state["launches"][key]["K2"], {"launches_engine": eng["K2"]}),
+                ("k1", "decode_attention", "decode_attention", 83,
+                 state["launches"][key]["K1"], {}),
+                ("k1p", "decode_attention_paged", "decode_attention", 83,
+                 eng["K1p"], {})):
+            r = state[kkey][case]
+            rows.append({
+                "name": f"{name} ({PATHS[key][0]}: {case})", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{kfile}.cu",
+                "replaces": f"src/repro/kernels/{kfile}/kernel.py:{line}",
+                "launches": launches, **extra,
+                "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+                "event_ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r.get("library_device_ms"),
+                **({"library_gathered_ms": r["library_gathered_device_ms"]}
+                   if "library_gathered_device_ms" in r else {})})
     return {"kernels": rows}
 
 

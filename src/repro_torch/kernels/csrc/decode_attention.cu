@@ -112,6 +112,13 @@
 // the same bits, and a lane's output depends on its own row, position and
 // pages only.
 
+// Head dims that are not a power of two (stablelm-3b's 80): a k/v row in
+// shared memory is padded to the next power of two (pad_hd: 80 -> 128), so
+// that the chunk swizzle c ^ (r & SWZ) stays inside the row.  Only the
+// row's real 16-byte chunks are copied, and no product reads a pad chunk:
+// the scores take hd / 16 k-steps, p.v hd / 8 column tiles.  The scale is
+// hd^-0.5 of the true hd, the template's HD.
+
 // Per-lane positions (the dense entry with lanes = 1): pos (B,) and kv_pos
 // (B, cap), lane b reading pos[b] and row b of kv_pos, for caches whose
 // lanes sit at different positions (the serving engine's reserved lanes
@@ -137,18 +144,27 @@ constexpr int MAX_CHUNK = 32768;      // slots per CTA (one keep bit each)
 constexpr int CHUNK_GRANULE = 64;     // ops.py: split_plan's slot granule
 constexpr int BT_STAGE = 1024;        // ops.py: BT_STAGE, table entries a CTA
 
+// shared-memory row width of a head dim: the next power of two (80 -> 128)
+__host__ __device__ constexpr int pad_hd(int hd) {
+  int p = 16;
+  while (p < hd) p *= 2;
+  return p;
+}
+
 template <typename T, int HD>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int ELEM = 16 / (int)sizeof(T);      // elements per chunk
-  static constexpr int CH = HD / ELEM;                  // chunks per row
-  static constexpr int SWZ = (CH < 8 ? CH : 8) - 1;     // chunk swizzle mask
+  static constexpr int HP = pad_hd(HD);                 // row width in smem
+  static constexpr int CH = HD / ELEM;                  // real chunks per row
+  static constexpr int CHP = HP / ELEM;                 // chunks per smem row
+  static constexpr int SWZ = (CHP < 8 ? CHP : 8) - 1;   // chunk swizzle mask
   // slots per block: 16 KB of k (and of v), at most 64
-  static constexpr int BS_BYTES = 16384 / (HD * (int)sizeof(T));
+  static constexpr int BS_BYTES = 16384 / (HP * (int)sizeof(T));
   static constexpr int BS = BS_BYTES < 64 ? BS_BYTES : 64;
   static constexpr int NST = F32 ? 2 : 3;               // ring stages
   static constexpr int SS = BS + 4;                     // score row stride
-  static constexpr size_t RING = (size_t)NST * 2 * BS * HD * sizeof(T);
+  static constexpr size_t RING = (size_t)NST * 2 * BS * HP * sizeof(T);
   static constexpr size_t SCORES = sizeof(float) * GMAX * SS;
   static constexpr size_t QS = F32 ? sizeof(float) * GMAX * HD : 0;
   static constexpr size_t MISC =
@@ -156,6 +172,8 @@ struct Cfg {
   static constexpr size_t SMEM = RING + SCORES + QS + MISC;
   static constexpr size_t SMEM_PAGED = SMEM + sizeof(int) * BT_STAGE;
   static_assert(CHUNK_GRANULE % BS == 0, "a chunk is whole blocks");
+  static_assert(HD % 16 == 0 && CH <= CHP && SWZ < CHP,
+                "swizzled chunks stay inside the row (CHP a power of 2)");
   static_assert(sizeof(float) * GMAX * HD <= RING, "acc_s aliases the ring");
   static_assert(SMEM_PAGED <= 113 * 1024, "two CTAs per SM");
 };
@@ -181,9 +199,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float scale, int chunk, PagedArgs pg) {
   using C = Cfg<T, HD>;
   constexpr int BS = C::BS, CH = C::CH, SWZ = C::SWZ, ELEM = C::ELEM;
-  constexpr int NST = C::NST, SS = C::SS;
+  constexpr int NST = C::NST, SS = C::SS, HP = C::HP;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);         // [NST][k|v][BS][HD]
+  T* ring = reinterpret_cast<T*>(smem);         // [NST][k|v][BS][HP]
   float* s_s = reinterpret_cast<float*>(smem + C::RING);   // [GMAX][SS]
   float* q_s = s_s + GMAX * SS;                 // [GMAX][HD], f32 path
   float* m_s = q_s + (C::F32 ? GMAX * HD : 0);  // [GMAX] partial max
@@ -237,9 +255,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int KD = HD / 16;                    // k-steps of q.k
   constexpr int SW = BS / NW;                    // score slots per warp
   constexpr int NS = SW / 8;                     // their 8-slot tiles
-  constexpr int NCW = HD / 8 < NW ? HD / 8 : NW; // warps owning columns
-  constexpr int CW = HD / NCW;                   // columns per such warp
-  constexpr int ND = C::F32 ? 1 : CW / 8;        // their 8-column tiles
+  constexpr int NTL = HD / 8;                    // 8-column output tiles
+  // output tiles per warp: warp w owns tiles w * ND .. w * ND + ND - 1
+  // that exist (at hd 80, 3, 3, 3 and 1)
+  constexpr int ND = C::F32 ? 1 : (NTL + NW - 1) / NW;
   constexpr int KC = BS / 16;                    // k-steps of p.v
   uint32_t qf[C::F32 ? 1 : KD][4];
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
@@ -296,8 +315,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // block i of this CTA into ring stage st: kept slots copied, the rest
   // (masked, or past the CTA's slots) zero-filled without a read
   auto load_block = [&](int i, int st) {
-    T* ks = ring + (size_t)st * 2 * BS * HD;
-    T* vs = ks + BS * HD;
+    T* ks = ring + (size_t)st * 2 * BS * HP;
+    T* vs = ks + BS * HP;
     const int j0 = s0 + i * BS;
     for (int idx = tid; idx < BS * CH; idx += NT) {
       const int r = idx / CH, c = idx % CH, j = j0 + r;
@@ -310,7 +329,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         else
           off = ((size_t)(b * cap + j) * Hkv + hk) * HD + c * ELEM;
       }
-      const int dst = r * HD + (c ^ (r & SWZ)) * ELEM;
+      const int dst = r * HP + (c ^ (r & SWZ)) * ELEM;
       cp_async16(ks + dst, k + off, !kept);
       cp_async16(vs + dst, v + off, !kept);
     }
@@ -320,6 +339,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NHS = NT / BS;                   // head subsets in the scores
   constexpr int R = HD >= NT ? 1 : NT / HD;      // slot subsets in p.v
   constexpr int COLS = HD >= NT ? HD / NT : 1;   // columns per thread in p.v
+  // hd 80: one subset, threads 80-127 own no column
+  constexpr bool ALL_COLS = (NT / R) * COLS == HD;
   const int sc = tid % BS, hs = tid / BS;
   const int d0 = tid % (NT / R), r0 = tid / (NT / R);
   float facc[C::F32 ? GMAX : 1][COLS];
@@ -347,8 +368,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait<NST - 1>();
     __syncthreads();
-    const T* ks = ring + (size_t)stage * 2 * BS * HD;
-    const T* vs = ks + BS * HD;
+    const T* ks = ring + (size_t)stage * 2 * BS * HP;
+    const T* vs = ks + BS * HP;
     const int j0 = s0 + cur * BS;
 
     if constexpr (!C::F32) {
@@ -363,20 +384,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int ns = 0; ns < NS; ++ns) {
         const int r = warp * SW + ns * 8 + (lane & 7);
-        if constexpr (KD % 2 == 0) {
 #pragma unroll
-          for (int kk = 0; kk < KD; kk += 2) {
-            const int c = 2 * kk + (lane >> 3);
-            uint32_t bfr[4];
-            ldmatrix_x4(bfr, ks + r * HD + (c ^ (r & SWZ)) * ELEM);
-            mma_16816(s[ns], qf[kk], bfr);
-            mma_16816(s2[ns], qf[kk + 1], bfr + 2);
-          }
-        } else {
-          const int c = (lane >> 3) & 1;
+        for (int kk = 0; kk + 1 < KD; kk += 2) {
+          const int c = 2 * kk + (lane >> 3);
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, ks + r * HP + (c ^ (r & SWZ)) * ELEM);
+          mma_16816(s[ns], qf[kk], bfr);
+          mma_16816(s2[ns], qf[kk + 1], bfr + 2);
+        }
+        if constexpr (KD % 2) {     // hd 16 and 80: the last k-step alone
+          const int c = 2 * (KD - 1) + ((lane >> 3) & 1);
           uint32_t bfr[2];
-          ldmatrix_x2(bfr, ks + r * HD + (c ^ (r & SWZ)) * ELEM);
-          mma_16816(s[ns], qf[0], bfr);
+          ldmatrix_x2(bfr, ks + r * HP + (c ^ (r & SWZ)) * ELEM);
+          mma_16816(s[ns], qf[KD - 1], bfr);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[ns][e] += s2[ns][e];
@@ -441,15 +461,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[nd][3] *= alpha[1];
       }
       // p.v on this warp's columns
-      if (warp < NCW) {
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          const int c = (warp * CW + nd * 8) / ELEM;
+      for (int nd = 0; nd < ND; ++nd) {
+        const int tl = warp * ND + nd;
+        if (tl < NTL) {
+          const int c = tl * 8 / ELEM;
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const int r = kc * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
             uint32_t bfr[2];
-            ldmatrix_x2_trans(bfr, vs + r * HD + (c ^ (r & SWZ)) * ELEM);
+            ldmatrix_x2_trans(bfr, vs + r * HP + (c ^ (r & SWZ)) * ELEM);
             mma_16816(acc[nd], pa[kc], bfr);
           }
         }
@@ -465,7 +486,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
         for (int c = 0; c < CH; ++c) {
           const float4 kv4 = *reinterpret_cast<const float4*>(
-              ks + sc * HD + (c ^ (sc & SWZ)) * ELEM);
+              ks + sc * HP + (c ^ (sc & SWZ)) * ELEM);
 #pragma unroll
           for (int i = 0; i < GMAX / NHS; ++i) {
             const int gg = hs + i * NHS;
@@ -534,8 +555,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < COLS; ++c) {
           const int d = d0 + c * NT;
+          if (!ALL_COLS && d >= HD) continue;
           const float vv =
-              vs[jj * HD + ((d / ELEM) ^ (jj & SWZ)) * ELEM + d % ELEM];
+              vs[jj * HP + ((d / ELEM) ^ (jj & SWZ)) * ELEM + d % ELEM];
 #pragma unroll
           for (int gg = 0; gg < GMAX; ++gg)
             if (gg < G) facc[gg][c] = fmaf(s_s[gg * SS + jj], vv, facc[gg][c]);
@@ -550,15 +572,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- this CTA's partial: acc_s[G][HD], m_s, l_s
   if constexpr (!C::F32) {
-    if (warp < NCW) {
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
+    for (int nd = 0; nd < ND; ++nd) {
+      const int tl = warp * ND + nd;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = g + 8 * (e >> 1);
-          if (row < G)
-            acc_s[row * HD + warp * CW + nd * 8 + 2 * t + (e & 1)] = acc[nd][e];
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e >> 1);
+        if (tl < NTL && row < G)
+          acc_s[row * HD + tl * 8 + 2 * t + (e & 1)] = acc[nd][e];
+      }
     }
     if (warp == 0 && t == 0) {
       if (g < G) {
@@ -580,6 +602,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (gg < G) {
 #pragma unroll
             for (int c = 0; c < COLS; ++c) {
+              if (!ALL_COLS && d0 + c * NT >= HD) continue;
               float* a = acc_s + gg * HD + d0 + c * NT;
               *a = r == 0 ? facc[gg][c] : *a + facc[gg][c];
             }
@@ -695,6 +718,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     case 32: return launch<T, 32, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     case 64: return launch<T, 64, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
+    case 80: return launch<T, 80, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     case 128: return launch<T, 128, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     case 256: return launch<T, 256, PAGED>(q, k, v, kv_pos, pos, o, B, cap, Hq, Hkv, window, softcap, chunk, nclu, pg, s);
     default: return cudaErrorInvalidValue;
@@ -772,15 +796,17 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
 template <int HD>
 struct PagedCfg {
   using T = __nv_bfloat16;
-  static constexpr int CH = HD / 8;                   // 16-byte chunks a row
-  static constexpr int SWZ = (CH < 8 ? CH : 8) - 1;   // chunk swizzle mask
+  static constexpr int HP = pad_hd(HD);               // row width in smem
+  static constexpr int CH = HD / 8;                   // real 16-byte chunks
+  static constexpr int CHP = HP / 8;                  // chunks a smem row
+  static constexpr int SWZ = (CHP < 8 ? CHP : 8) - 1; // chunk swizzle mask
   static constexpr int NST = 2;                       // tiles in flight a warp
   static constexpr bool QREG = HD <= 128;             // q fragments in registers
   static constexpr int PWS = HD + 4;     // row stride of a warp's partial
-  static constexpr size_t STAGE = 2 * TILE * HD * sizeof(T);   // k and v rows
+  static constexpr size_t STAGE = 2 * TILE * HP * sizeof(T);   // k and v rows
   static constexpr size_t RING = (size_t)NW * NST * STAGE;
   static constexpr size_t KVP = sizeof(int) * NW * NST * TILE;
-  static constexpr size_t QS = QREG ? 0 : sizeof(T) * GMAX * HD;
+  static constexpr size_t QS = QREG ? 0 : sizeof(T) * GMAX * HP;
   static constexpr size_t MISC = sizeof(float) * 2 * NW * GMAX;
   // the cluster merge: each peer's (m, l) of every row and its part of
   // this CTA's slice of the output
@@ -791,6 +817,9 @@ struct PagedCfg {
   static_assert(sizeof(float) * GMAX * PWS <= NST * STAGE,
                 "a warp's partial fits its own ring");
   static_assert(HD > 128 || SMEM <= 113 * 1024, "two CTAs per SM");
+  static_assert(HD % 16 == 0 && TILE * CH % 32 == 0 && CH <= CHP &&
+                SWZ < CHP, "a tile's chunks split evenly over a warp and "
+                "stay in the row (CHP a power of 2)");
   static_assert(SMEM <= 227 * 1024, "shared memory of one CTA");
 };
 
@@ -810,13 +839,13 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
                     int ppc, long long kv_pstride, long long pos_pstride) {
   using T = __nv_bfloat16;
   using C = PagedCfg<HD>;
-  constexpr int CH = C::CH, SWZ = C::SWZ, NST = C::NST;
+  constexpr int CH = C::CH, SWZ = C::SWZ, NST = C::NST, HP = C::HP;
   constexpr int KD = HD / 16;                    // k-steps of k.q
   constexpr int MD = HD / 16;                    // 16-row (dim) tiles of p.v
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);          // [NW][NST][k|v][TILE][HD]
+  T* ring = reinterpret_cast<T*>(smem);          // [NW][NST][k|v][TILE][HP]
   int* kvp_s = reinterpret_cast<int*>(smem + C::RING);     // [NW][NST][TILE]
-  T* q_s = reinterpret_cast<T*>(smem + C::RING + C::KVP);  // [GMAX][HD]
+  T* q_s = reinterpret_cast<T*>(smem + C::RING + C::KVP);  // [GMAX][HP]
   float* mw_s = reinterpret_cast<float*>(smem + C::RING + C::KVP + C::QS);
   float* lw_s = mw_s + NW * GMAX;                // [NW][GMAX] warps' (m, l)
   float* rml_s = lw_s + NW * GMAX;               // [MAX_CLUSTER][m|l][GMAX]
@@ -865,7 +894,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = i / CH, c = i % CH;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (r < G) val = *reinterpret_cast<const uint4*>(qb + r * HD + c * 8);
-      *reinterpret_cast<uint4*>(q_s + r * HD + (c ^ (r & SWZ)) * 8) = val;
+      *reinterpret_cast<uint4*>(q_s + r * HP + (c ^ (r & SWZ)) * 8) = val;
     }
   }
   if (tid < npg) bt_s[tid] = bt0;
@@ -895,11 +924,11 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
     }
     return c;
   };
-  T* const wring = ring + (size_t)warp * NST * 2 * TILE * HD;
+  T* const wring = ring + (size_t)warp * NST * 2 * TILE * HP;
   int* const wkvp = kvp_s + warp * NST * TILE;
   auto load_tile = [&](int c, int st) {
-    T* ks = wring + (size_t)st * 2 * TILE * HD;
-    T* vs = ks + TILE * HD;
+    T* ks = wring + (size_t)st * 2 * TILE * HP;
+    T* vs = ks + TILE * HP;
     const int j0 = c * TILE;
 #pragma unroll
     for (int i = 0; i < TILE * CH / 32; ++i) {
@@ -910,7 +939,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
           phys >= 0 ? (size_t)phys * kv_pstride +
                           ((size_t)(j % ps) * Hkv + hk) * HD + cc * 8
                     : 0;
-      const int dst = r * HD + (cc ^ (r & SWZ)) * 8;
+      const int dst = r * HP + (cc ^ (r & SWZ)) * 8;
       cp_async16(ks + dst, k + off, phys < 0);
       cp_async16(vs + dst, v + off, phys < 0);
     }
@@ -955,8 +984,8 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
   for (int cur = next_live(warp); cur < ntiles; cur = next_live(cur + NW)) {
     cp_async_wait<NST - 1>();
     __syncwarp();
-    const T* ks = wring + (size_t)stage * 2 * TILE * HD;
-    const T* vs = ks + TILE * HD;
+    const T* ks = wring + (size_t)stage * 2 * TILE * HP;
+    const T* vs = ks + TILE * HP;
     const int* kp = wkvp + stage * TILE;
     if constexpr (K1P_PROBE != 3) {
       // scores S^T[16 slots][heads] = k.q^T: the tile's k rows are the A
@@ -972,7 +1001,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t af[4];
         const int r = (lane & 7) + 8 * ((lane >> 3) & 1);
         const int c = 2 * kk + (lane >> 4);
-        ldmatrix_x4(af, ks + r * HD + (c ^ (r & SWZ)) * 8);
+        ldmatrix_x4(af, ks + r * HP + (c ^ (r & SWZ)) * 8);
         uint32_t qb2[2][2];
         if constexpr (C::QREG) {
 #pragma unroll
@@ -984,7 +1013,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
           uint32_t x4[4];
           const int qr = (lane & 7) + 8 * (lane >> 4);
           const int qc = 2 * kk + ((lane >> 3) & 1);
-          ldmatrix_x4(x4, q_s + qr * HD + (qc ^ (qr & SWZ)) * 8);
+          ldmatrix_x4(x4, q_s + qr * HP + (qc ^ (qr & SWZ)) * 8);
           qb2[0][0] = x4[0];
           qb2[0][1] = x4[1];
           qb2[1][0] = x4[2];
@@ -1044,7 +1073,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
         const int r = (lane & 7) + 8 * (lane >> 4);
         const int c = 2 * md + ((lane >> 3) & 1);
         uint32_t af[4];
-        ldmatrix_x4_trans(af, vs + r * HD + (c ^ (r & SWZ)) * 8);
+        ldmatrix_x4_trans(af, vs + r * HP + (c ^ (r & SWZ)) * 8);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           if (nt >= NG) continue;
@@ -1114,7 +1143,7 @@ decode_paged_kernel(const __nv_bfloat16* __restrict__ q,
       const float wt = expf(mw[w] - Ms);
       L = fmaf(wt, lw_s[w * GMAX + gg], L);
       const float4 a = *reinterpret_cast<const float4*>(
-          reinterpret_cast<const float*>(ring + (size_t)w * NST * 2 * TILE * HD) +
+          reinterpret_cast<const float*>(ring + (size_t)w * NST * 2 * TILE * HP) +
           gg * C::PWS + d);
       sum.x = fmaf(wt, a.x, sum.x);
       sum.y = fmaf(wt, a.y, sum.y);
@@ -1235,6 +1264,7 @@ cudaError_t dispatch_paged(int hd, const void* q, const void* k,
     case 16: return dispatch_ps<16>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
     case 32: return dispatch_ps<32>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
     case 64: return dispatch_ps<64>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
+    case 80: return dispatch_ps<80>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
     case 128: return dispatch_ps<128>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
     case 256: return dispatch_ps<256>(ps, q, k, v, kv_pos, bt, pos, o, B, max_blocks, Hq, Hkv, window, softcap, ppc, nclu, kv_pstride, pos_pstride, s);
     default: return cudaErrorInvalidValue;

@@ -42,6 +42,12 @@
 //  * epilogue: the normalised tile is written into the warpgroup's own
 //    (consumed) q rows in the swizzled layout and stored by TMA, which
 //    clips rows past Sq.
+// bf16 at hd 80 (stablelm-3b) takes the same kernel with two 64-column
+//    sub-tiles: the tensor maps carry the true hd, so the second sub-tile's
+//    box loads columns 64-79 and zero-fills 80-127 (the full box still
+//    counts in expect_tx), and the output's TMA store clips columns past 80.
+//    The scores take hd / 16 = 5 k-steps (no pad column); p.v runs on both
+//    sub-tiles, 1.6x the useful products.  The scale is 80^-0.5.
 // bf16 at hd 16 and 32 (smoke shapes only; flash_fwd_mma_kernel): rows under
 //    128 B do not take this swizzle, so these stay on mma.sync m16n8k16 with
 //    plain staged loads, a choice by shape, counted as the same launch.
@@ -436,7 +442,8 @@ template <int HD, int NCW>
 struct TmaCfg {
   static constexpr int TQ = 64 * NCW;         // query rows per CTA
   static constexpr int NT = 128 * NCW + (NCW == 2 ? 128 : 32);   // threads
-  static constexpr int NSUB = HD / 64;        // 64-column sub-tiles (128 B rows)
+  // 64-column sub-tiles (128 B rows); hd 80 takes 2, the second zero past 80
+  static constexpr int NSUB = (HD + 63) / 64;
   // ring stages: three (two at hd 256); with one warpgroup two CTAs of
   // 112 KB (+ 1 KB static, + 1 KB the runtime keeps) fill the SM's 228 KB
   static constexpr int NST = HD >= 256 ? 2 : 3;
@@ -821,7 +828,7 @@ cudaError_t encode_fn(EncodeTiledFn* out) {
 
 // (B, S, H, hd) bf16 as a 4-d tensor map (innermost first) whose box is 64
 // columns x 1 head x rows x 1 batch row, 128-byte swizzled; rows past S
-// load as zeros and are clipped on store.  Built on every call (the
+// (and columns past hd) load as zeros and are clipped on store.  Built on every call (the
 // encoder is host arithmetic: chip_smoke.py times it through
 // flash_attention_tensor_map_ns), so no cache can go stale.
 cudaError_t tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* p,
@@ -900,6 +907,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 16: return (int)launch_mma<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 32: return (int)launch_mma<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 64: return (int)launch_tma<64, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
+      case 80: return (int)launch_tma<80, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 128: return (int)launch_tma<128, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 256: return (int)launch_tma<256, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       default: return (int)cudaErrorInvalidValue;
@@ -910,6 +918,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 16: return (int)launch_f32<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 32: return (int)launch_f32<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 64: return (int)launch_f32<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
+      case 80: return (int)launch_f32<80>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 128: return (int)launch_f32<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       case 256: return (int)launch_f32<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, softcap, s);
       default: return (int)cudaErrorInvalidValue;

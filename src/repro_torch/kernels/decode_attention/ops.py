@@ -33,7 +33,7 @@ from repro_torch.kernels.common import (F, I, P, check_operands, on_cpu,
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_paged_ref, decode_attention_ref)
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 16      # csrc/decode_attention.cu: GMAX
 MAX_CLUSTER = 16    # csrc/decode_attention.cu: MAX_CLUSTER (non-portable > 8)
 CHUNK_GRANULE = 64  # csrc/decode_attention.cu: CHUNK_GRANULE (whole blocks)

@@ -15,7 +15,7 @@ from repro_torch.kernels.common import (F, I, P, check_operands, on_cpu,
                                         raise_on_error, stream_of)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _ARGTYPES = (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P)
 
 

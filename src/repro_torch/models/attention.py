@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import cdtype, normal, rope_fwd
+from repro_torch.models.layers import (cdtype, normal, rmsnorm_1d,
+                                       rope_fwd)
 
 NEG_INF = -1e30
 _INVALID_POS = 2**30  # masked-out slot sentinel (kv_pos > q_pos)
@@ -130,18 +131,21 @@ def sdpa(q, k, v, *, impl="naive", **kw):
 # ---------------------------------------------------------------------------
 
 def init_gqa(cfg: ModelConfig, device, gen, count: int = 0) -> dict:
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet")
     dt = cdtype(cfg)
     hd = cfg.head_dim_
     D, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     s = D ** -0.5
-    return {
+    p = {
         "wq": normal((D, H, hd), s, dt, device, gen, count),
         "wk": normal((D, Hkv, hd), s, dt, device, gen, count),
         "wv": normal((D, Hkv, hd), s, dt, device, gen, count),
         "wo": normal((H, hd, D), (H * hd) ** -0.5, dt, device, gen, count),
     }
+    if cfg.qk_norm:
+        shape = ((count,) if count else ()) + (hd,)
+        p["q_norm"] = torch.ones(shape, dtype=dt, device=device)
+        p["k_norm"] = torch.ones(shape, dtype=dt, device=device)
+    return p
 
 
 def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -161,6 +165,9 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = _head_proj(x, p["wq"])
     k = _head_proj(x, p["wk"])
     v = _head_proj(x, p["wv"])
+    if cfg.qk_norm:         # per head, before RoPE
+        q = rmsnorm_1d(q, p["q_norm"])
+        k = rmsnorm_1d(k, p["k_norm"])
     q = rope_fwd(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = rope_fwd(k, positions, cfg.rope_theta, cfg.rope_pct)
     return q, k, v

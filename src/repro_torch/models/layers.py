@@ -50,17 +50,36 @@ def normal(shape, scale: float, dtype: torch.dtype, device: torch.device,
 # ---------------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, d: int, device, count: int = 0) -> dict:
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_kind!r} is not ported yet")
+    """RMSNorm (``scale``) or LayerNorm (``scale`` and ``bias``); ``count``
+    stacks that many along a new axis 0."""
+    if cfg.norm_kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm kind {cfg.norm_kind!r}")
     shape = ((count,) if count else ()) + (d,)
-    return {"scale": torch.ones(shape, dtype=cdtype(cfg), device=device)}
+    p = {"scale": torch.ones(shape, dtype=cdtype(cfg), device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=cdtype(cfg), device=device)
+    return p
 
 
 def norm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+    if cfg.norm_kind == "layernorm":
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + 1e-5)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
     return out.to(x.dtype)
+
+
+def rmsnorm_1d(x: torch.Tensor, scale: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis with an explicit scale (qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,10 @@ As in the reference, an architecture is a list of **segments**, each
 parameters and caches stacked along a leading ``count`` axis:
 
     yi-9b:            [48 x ("attn+mlp",)]
+    qwen3-8b:         [36 x ("attn+mlp",)]     (qk-norm in attn)
+    stablelm-3b:      [32 x ("attn+mlp",)]     (LayerNorm, rotary on a
+                                                quarter of hd 80)
+    starcoder2-15b:   [40 x ("attn+mlp",)]     (LayerNorm, GELU mlp)
     mamba2:           [48 x ("ssm",)]
     recurrentgemma:   [12 x ("rec+mlp", "rec+mlp", "attn+mlp"),
                        1 x ("rec+mlp", "rec+mlp")]

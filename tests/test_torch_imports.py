@@ -4,8 +4,8 @@
 reference package; ``chip_smoke.py`` and ``train_memory.py`` import
 neither.  Nothing picks the CPU on its own: a CUDA request on a host
 without a card raises, and a missing ``nvcc`` is an error, never a
-fallback.  ``chip_smoke.py``'s ``disagg`` phase rehearses on the CPU at
-smoke size.
+fallback.  ``chip_smoke.py``'s ``disagg`` and ``dense_archs`` phases
+rehearse on the CPU at smoke size.
 """
 
 import ast
@@ -41,7 +41,9 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.models.transformer", "repro_torch.testing",
              "repro_torch.obs", "repro_torch.obs.tracer",
              "repro_torch.obs.export", "repro_torch.serve.prefix_cache",
-             "repro_torch.serve.disagg"}
+             "repro_torch.serve.disagg", "repro_torch.configs.qwen3_8b",
+             "repro_torch.configs.stablelm_3b",
+             "repro_torch.configs.starcoder2_15b"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -172,3 +174,29 @@ def test_chip_smoke_disagg_phase_rehearses_on_the_cpu():
     d = state["disagg"]
     assert d["a"]["handoff_total"] >= 1 and d["b"]["torn"] == 2
     assert d["a"]["requests"] == d["b"]["requests"] == 6
+
+
+def test_chip_smoke_dense_archs_phase_rehearses_on_the_cpu():
+    """The ``dense_archs`` phase's code path on the three smoke archs on
+    the CPU: served through the runtime, kernel path against plain path,
+    the engine single-step and fused (same tokens) and on a monitor to the
+    logit checks' iteration (launch counts and logits only on the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    ec = dict(chip_smoke.ENGINE, page_size=4, prompt_buckets=(8, 16),
+              prompt_len=16, max_new_tokens=4, pool_pages=64, n_requests=4)
+    chip_smoke.phase_dense_archs(state, device="cpu", cut=dict(
+        archs=("qwen3-8b-smoke", "stablelm-3b-smoke",
+               "starcoder2-15b-smoke"), serve_prompt=16, logit_at=2,
+        engine=ec))
+    d = state["dense_archs"]
+    assert [d[k]["arch"] for k in ("qwen3", "stablelm", "starcoder2")] == [
+        "qwen3-8b-smoke", "stablelm-3b-smoke", "starcoder2-15b-smoke"]
+    for k in ("qwen3", "stablelm", "starcoder2"):
+        assert d[k]["parity"]["logit_rel_err"] == [0.0] * 5
+        a = d[k]["engine"]["a_single_step"]
+        assert a["prefills"] >= 4 and a["decode_steps"] > 0

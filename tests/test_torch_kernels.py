@@ -64,6 +64,8 @@ def _ring_kv_pos(cap, pos, hole=None):
     (1, 128, 8, 8, 128, True, 0),
     (2, 128, 4, 1, 64, True, 32),
     (1, 64, 4, 2, 32, False, 0),
+    (1, 128, 4, 4, 80, True, 0),       # stablelm-3b: hd 80, MHA (G 1)
+    (1, 128, 12, 1, 128, True, 0),     # starcoder2-15b: G 12
 ])
 def test_flash_plain_matches_pallas(B, S, Hq, Hkv, hd, causal, window, dtype):
     q, k, v = _normal(B * 7 + S, (B, S, Hq, hd), (B, S, Hkv, hd),
@@ -110,6 +112,8 @@ def test_flash_wrapper_on_cpu_runs_the_plain_version():
     (2, 256, 8, 2, 64, 200, 0),
     (1, 256, 4, 4, 128, 255, 0),
     (2, 512, 8, 1, 64, 400, 128),
+    (2, 256, 4, 4, 80, 200, 0),        # stablelm-3b: hd 80, MHA (G 1)
+    (1, 256, 12, 1, 128, 255, 0),      # starcoder2-15b: G 12
 ])
 def test_decode_plain_matches_pallas(B, cap, Hq, Hkv, hd, pos, window,
                                      dtype):
@@ -283,14 +287,91 @@ def test_decode_kernel_split_edges_on_card(cuda, dtype, case):
                                              window=window))
 
 
+# stablelm-3b's and starcoder2-15b's shapes, narrowed:
+# (B, S, Hq, Hkv, hd, window); the decode cases read a cache of S slots
+NEW_SHAPES = {
+    "hd80_g1": (2, 200, 8, 8, 80, 0),
+    "hd80_g1_window": (2, 300, 4, 4, 80, 64),
+    "hd128_g12": (2, 200, 24, 2, 128, 0),
+    "hd80_g12": (1, 150, 12, 1, 80, 0),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(NEW_SHAPES))
+def test_kernels_at_head_dim_80_and_group_12_on_card(cuda, dtype, case):
+    """K2, K1's dense and K1's paged entry at hd 80 (rows padded to 128 in
+    shared memory, scale 80^-0.5) and at group 12: each wrapper launches
+    its kernel on a CUDA tensor (its count rises; no plain fallback) and
+    matches its plain version; two calls give the same bits."""
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_paged
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_paged_ref
+
+    B, S, Hq, Hkv, hd, window = NEW_SHAPES[case]
+    q, k, v = (_t(x, dtype).to(cuda) for x in _normal(
+        S + hd + Hq, (B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    assert torch.equal(out, flash_attention(q, k, v, causal=True,
+                                            window=window))
+
+    pos = S + 40                        # a wrapped ring of S slots
+    kv_pos = torch.from_numpy(_ring_kv_pos(S, pos)).to(cuda)
+    qd = q[:, :1].contiguous()
+    before = decode_attention.launches
+    out = decode_attention(qd, k, v, pos, kv_pos, window=window)
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(qd, k, v, pos, kv_pos, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    assert torch.equal(out, decode_attention(qd, k, v, pos, kv_pos,
+                                             window=window))
+
+    # the paged entry: the cache cut into pages of 16, scattered through a
+    # pool, lane b at position S - 1 - 7 b (its last page part-filled)
+    ps, mb = 16, -(-S // 16)
+    NP = B * mb + 3
+    perm = torch.from_numpy(np.random.default_rng(S).permutation(NP)[:B * mb]
+                            .astype(np.int32)).view(B, mb)
+    kp = torch.zeros((NP, ps, Hkv, hd), dtype=k.dtype, device=cuda)
+    vp, kvp = torch.zeros_like(kp), torch.zeros((NP, ps), dtype=torch.int32)
+    posv = torch.tensor([S - 1 - 7 * b for b in range(B)], dtype=torch.int32)
+    pad = mb * ps - S
+    for b in range(B):
+        rows = perm[b].long()
+        kp[rows] = torch.nn.functional.pad(k[b], (0, 0, 0, 0, 0, pad)).view(
+            mb, ps, Hkv, hd)
+        vp[rows] = torch.nn.functional.pad(v[b], (0, 0, 0, 0, 0, pad)).view(
+            mb, ps, Hkv, hd)
+        kvp[rows] = torch.arange(mb * ps, dtype=torch.int32).view(mb, ps)
+    kvp, bt, posv = kvp.to(cuda), perm.to(cuda), posv.to(cuda)
+    before = decode_attention_paged.launches
+    out = decode_attention_paged(qd, kp, vp, kvp, bt, posv, window=window)
+    assert decode_attention_paged.launches == before + 1
+    ref = decode_attention_paged_ref(qd, kp, vp, kvp, bt, posv,
+                                     window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    assert torch.equal(out, decode_attention_paged(qd, kp, vp, kvp, bt, posv,
+                                                   window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("S,window", [(1, 0), (127, 0), (129, 0), (200, 0),
                                       (200, 64), (256, 128)])
 def test_flash_kernel_tile_edges_on_card(cuda, hd, S, window):
     """Sq one row, one short of and one past a 64/128-row tile; windows that
     end on a 64-key tile boundary; every head dim route (hd 16 mma.sync,
-    64/128 one consumer warpgroup, 256 two).  Two calls give the same bits."""
+    64/80/128 one consumer warpgroup, 80 with a zero-filled second
+    sub-tile, 256 two).  Two calls give the same bits."""
     q, k, v = (_t(x, "bfloat16").to(cuda) for x in _normal(
         S + hd, (2, S, 16, hd), (2, S, 2, hd), (2, S, 2, hd)))
     before = flash_attention.launches

@@ -141,6 +141,9 @@ CASES = {
     # positions past the mapped span (pipelined lanes reach them)
     "past_span": (3, 16, 8, 32, 16, 2, 32, [127, 300, 4000], (), 0),
     "window": (2, 16, 20, 48, 16, 1, 32, [250, 319], (), 100),
+    # stablelm-3b's hd 80 (MHA) and starcoder2-15b's group 12, narrowed
+    "hd80_g1": (2, 16, 20, 48, 4, 4, 80, [250, 97], (), 0),
+    "hd80_g12": (2, 16, 20, 48, 12, 1, 80, [319, 160], (), 0),
 }
 
 
