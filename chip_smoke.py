@@ -14,7 +14,9 @@ caught):
    paths' shapes, bf16 and f32, with the tolerances below: K2 and K1 at
    yi-9b's and recurrentgemma-9b's shapes (hd 128 and 256), K2, K1 and
    K1 paged at stablelm-3b's (hd 80, 32/32 heads), starcoder2-15b's
-   (group 12) and, in bf16, qwen3-8b's (32/8), K1's paged
+   (group 12), deepseek-moe-16b's (16/16 heads of 128, group 1; K2 also
+   at the engine's B 1 admissions) and, in bf16, qwen3-8b's (32/8), K1's
+   paged
    entry at the engine's decode shape (8 lanes at ragged positions over
    pages of 16 scattered through a 288-page pool, and the 8 idle rows that
    pad the decode to 16 rows), K3 at mamba2-1.3b's
@@ -59,11 +61,12 @@ caught):
 14. the paged continuous-batching engine at full-width yi-9b
    (``phase_engine``): 24 requests through RequestRouter ->
    EngineServeTask -> FunkyRuntime, single-step and 8 steps fused, and on
-   a monitor with evict/resume every 4 iterations; identical tokens,
+   a monitor with evict/resume every 16 iterations; identical tokens,
    exact launch counts (paged K1 48 per decode step, K2 48 per prefill,
    dense K1 none), OOM preemption and compaction, page-granular evicts,
    kernel-path logits against the plain path's, one traced decode step;
-15. the engine's features at full-width yi-9b (``phase_features``, budget
+15. the engine's features at full-width yi-9b cut to 12 of its 48
+   layers (``phase_features``, budget
    240 s and 45 GB peak, both gated): (d) the engine phase's first 8
    requests untraced and with one Tracer shared by router, engine and
    monitor (same tokens, the Chrome trace validates, per-iteration split
@@ -75,22 +78,25 @@ caught):
    dense and K2 launches, accept rate and decode tokens/s); (g) reserved
    mode on (f)'s requests (exact launches, one decode step's logits
    within LOGIT_REL_TOL of the plain path's);
-16. prefill/decode disaggregation at full-width yi-9b (``phase_disagg``,
-   budget 150 s and 45 GB, both gated): the engine phase's 24 requests
+16. prefill/decode disaggregation at full-width yi-9b cut to 12 of its
+   48 layers (``phase_disagg``, budget 150 s and 45 GB, both gated): the
+   engine phase's 24 requests
    through one RequestRouter -> a prefill replica (2 lanes, single-step)
    -> the KV handoff (TransferQueue: gather, d2h, h2d, scatter) -> a
    decode replica (14 lanes, 8 steps fused, one EXECUTE ahead), each on
-   its own monitor and slice of the card; (a) the engine phase's run (a)
-   tokens, (b) the same with two transfers torn (each replays through its
+   its own monitor and slice of the card; (a) the tokens of the engine
+   phase's run (a) at the same depth (served once first), (b) the same with two transfers torn (each replays through its
    lease; every request once), (c) the decode replica's first step after
    an install, kernel-path logits within LOGIT_REL_TOL of the plain
    path's; exact launches over both replicas;
-17. the CRI layer at full-width yi-9b (``phase_cri``): the same 24
+17. the CRI layer at full-width yi-9b cut to 12 of its 48 layers
+   (``phase_cri``): the same 24
    requests through NodeAgent -> ContainerEngine -> FunkyRuntime on two
    nodes of the card, with a full and an incremental checkpoint to disk
    (the second bit-flipped after publishing), evict and migrate, replicate,
    a hard failure of the replica's node with lease replay, and a restore
-   that falls back to the first snapshot; run (a)'s tokens, exact launch
+   that falls back to the first snapshot; run (a)'s tokens at the same
+   depth (the disagg phase's reference), exact launch
    counts over every replica, seconds and bytes of each operation;
 18. the control plane at full-width yi-9b (``phase_orch``): ``make_cluster``
    (two nodes of two slices on the card, PRE_MG) with four mamba2-1.3b
@@ -121,7 +127,19 @@ caught):
    first 8 requests through RequestRouter -> EngineServeTask, single-step
    and 8 fused with one EXECUTE ahead (same tokens; K2 L per admission,
    K1 paged L per decode step, dense K1 never), then a paged decode
-   step's and each bucket's prefill's logits within LOGIT_REL_TOL.
+   step's and each bucket's prefill's logits within LOGIT_REL_TOL;
+21. the MoE family (``phase_moe``, budget 150 s and 45 GB peak, both
+   gated): deepseek-moe-16b at full width and depth (28 layers: one dense,
+   27 of 64 routed experts top-6 and 2 shared; MHA 16/16 heads of 128),
+   the dense_archs phase's steps (a)-(d) for one arch: served through the
+   runtime (K2 28 per prefill, K1 28 per token), kernel path against plain
+   path, the engine on 8 requests single-step and fused (K2 28 per
+   admission, K1 paged 28 per decode step), the paged decode step's and
+   each bucket's prefill's logits; in the logit checks the plain path
+   takes the kernel path's MoE routing, and the rows its own router
+   would have routed otherwise are logged (a near-tie of the top-k flips
+   on a bf16 rounding difference); the warm decode step's trace and the
+   device time of its expert path.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -133,6 +151,7 @@ launches on its main path and its numbers.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import gc
 import json
@@ -175,7 +194,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
-          "disagg", "cri", "orch", "train", "dense_archs")
+          "disagg", "cri", "orch", "train", "dense_archs", "moe")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -193,6 +212,8 @@ PATHS = {
     "qwen3": ("qwen3-8b", 512, {"K2": 36}, {"K1": 36}),
     "stablelm": ("stablelm-3b", 512, {"K2": 32}, {"K1": 32}),
     "starcoder2": ("starcoder2-15b", 512, {"K2": 40}, {"K1": 40}),
+    # the moe phase: MHA 16/16 heads of 128 in every layer
+    "deepseek_moe": ("deepseek-moe-16b", 512, {"K2": 28}, {"K1": 28}),
 }
 
 
@@ -912,19 +933,34 @@ def phase_kernels(state):
     # starcoder2-15b (48/4: group 12, two 8-head n-tiles in K1 paged); K2
     # at the serving prefill, K1 dense at its decode (cap 512 + 128, pos
     # 600), K1 paged at the engine's decode (16 rows: 8 lanes, 8 idle);
-    # qwen3-8b's (32/8) in bf16
+    # qwen3-8b's (32/8) in bf16; bf16 timed, f32 checked only
     for tag, Hq, Hkv, hd, dtypes in (
             ("hd80", 32, 32, 80, ("bfloat16", "float32")),
             ("g12", 48, 4, 128, ("bfloat16", "float32")),
             ("qwen3", 32, 8, 128, ("bfloat16",))):
         for dt in dtypes:
             case = f"{tag}_path" + ("_f32" if dt == "float32" else "")
-            _flash_case(state, case, 8, 512, Hq, Hkv, hd, dt, time_it=True)
+            t = dt == "bfloat16"
+            _flash_case(state, case, 8, 512, Hq, Hkv, hd, dt, time_it=t)
             _decode_case(state, case, 8, 640, Hq, Hkv, hd, 600, dt,
-                         time_it=True)
+                         time_it=t)
             _paged_case(state, case, 16, 16, 36, 288, Hq, Hkv, hd,
                         ENGINE_PAGED_POS + [0] * 8, dt,
-                        inactive=tuple(range(8, 16)), time_it=True)
+                        inactive=tuple(range(8, 16)), time_it=t)
+    # the moe phase's deepseek-moe-16b (MHA, 16/16 heads of 128): the same
+    # three shapes, bf16 timed (same bits on repeat), f32 checked against
+    # the plain version; K2 also at the engine's B 1 admissions
+    for dt in ("bfloat16", "float32"):
+        case = "mha128_path" + ("_f32" if dt == "float32" else "")
+        t = dt == "bfloat16"
+        _flash_case(state, case, 8, 512, 16, 16, 128, dt, time_it=t)
+        _decode_case(state, case, 8, 640, 16, 16, 128, 600, dt, time_it=t)
+        _paged_case(state, case, 16, 16, 36, 288, 16, 16, 128,
+                    ENGINE_PAGED_POS + [0] * 8, dt,
+                    inactive=tuple(range(8, 16)), time_it=t)
+    for P in ENGINE["prompt_buckets"]:
+        _flash_case(state, f"mha128_engine_p{P}", 1, P, 16, 16, 128,
+                    "bfloat16", time_it=True)
     # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
     # 256; bf16 takes the mma route, f32 the CUDA cores), a ragged S, a
     # chunk that is not a multiple of the mma route's 64-row block, and the
@@ -1073,12 +1109,15 @@ def phase_serve_recurrentgemma(state):
 # 4. kernel path against plain path at full width
 # ---------------------------------------------------------------------------
 
-def _logit_parity(cfg, S, alt=None, device="cuda"):
+def _logit_parity(cfg, S, alt=None, device="cuda", pin=None):
     """The kernel path and the plain path (and ``alt``, a plain path that
     differs from it only in the order of its sums) on one set of weights:
     prefill, then 4 decode steps of the kernel path's tokens.  Returns the
     weights, max|logit - plain| / max|plain| per step for each path, and
-    the kernel path's greedy-token agreement with the plain path."""
+    the kernel path's greedy-token agreement with the plain path.  With
+    ``pin`` (``_routing_pin``), the plain path takes the kernel path's MoE
+    routing (tags "s<step>_kernel" and "s<step>_naive"), and "unpinned"
+    is the kernel path against the plain path on its own routing."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -1090,19 +1129,33 @@ def _logit_parity(cfg, S, alt=None, device="cuda"):
                                     decode_impl="naive")}
     if alt is not None:
         bundles["alt"] = alt
+    if pin is not None:
+        bundles["unpinned"] = bundles["plain"]
     params = bundles["kernel"].init(SEED, device=device)
     toks = torch.as_tensor(make_batch(cfg, ShapeConfig("p", "train", S, 8),
                                       0)["tokens"]).to(device)
     rels = {k: [] for k in bundles if k != "plain"}
     agree = []
+
+    def pinned(k, i):
+        if pin is None or k not in ("kernel", "plain"):
+            return contextlib.nullcontext()
+        return pin(f"s{i}_" + ("kernel" if k == "kernel" else "naive"))
+
     with torch.no_grad():
-        res = {k: b.prefill_fn(params, {"tokens": toks})
-               for k, b in bundles.items()}
+        res = {}
+        for k, b in bundles.items():
+            with pinned(k, 0):
+                res[k] = b.prefill_fn(params, {"tokens": toks})
         for i in range(5):
             lp = res["plain"][0].float()
             for k in rels:
-                rels[k].append(((res[k][0].float() - lp).abs().max()
-                                / lp.abs().max()).item())
+                # "unpinned": the kernel path against the plain path on
+                # its own routing
+                out, ref = ((res["kernel"][0].float(), res[k][0].float())
+                            if k == "unpinned" else (res[k][0].float(), lp))
+                rels[k].append(((out - ref).abs().max()
+                                / ref.abs().max()).item())
             tk = res["kernel"][0].argmax(-1)
             agree.append((tk == lp.argmax(-1)).float().mean().item())
             if not ((0 <= tk) & (tk < cfg.vocab_size)).all():
@@ -1111,9 +1164,10 @@ def _logit_parity(cfg, S, alt=None, device="cuda"):
                 break
             # every path decodes the kernel path's tokens (same inputs)
             tok = tk.to(torch.int32)
-            res = {k: bundles[k].decode_fn(params, tok, S + i, res[k][1],
-                                           inplace=True)
-                   for k in res}
+            for k in list(res):
+                with pinned(k, i + 1):
+                    res[k] = bundles[k].decode_fn(params, tok, S + i,
+                                                  res[k][1], inplace=True)
     return params, rels, agree
 
 
@@ -1125,7 +1179,11 @@ def _parity(state, key, device="cuda", arch=None):
     PARITY_F32_TOL; in bf16, within LOGIT_REL_TOL or twice the plain path's
     own spread under a reordering of its sums, whichever is larger (at full
     width these random-weight models amplify one bf16 rounding flip per
-    layer into several percent of the logits; see PERF.md)."""
+    layer into several percent of the logits; see PERF.md).  MoE archs:
+    the plain path takes the kernel path's routing (``_routing_pin``); the
+    log adds the kernel path against the plain path on its own routing
+    ("unpinned", not gated) and, step by step, the rows whose top-k
+    expert set the plain path's router would have picked otherwise."""
     import dataclasses
 
     import torch
@@ -1157,11 +1215,19 @@ def _parity(state, key, device="cuda", arch=None):
     elif key == "recurrentgemma":   # online-softmax attention, 512-key blocks
         alt = build_model(cfg, prefill_impl="blockwise", decode_impl="naive",
                           prefill_chunk=512)
-    params, rels, agree = _logit_parity(cfg, S, alt, device)
+    routing = {}
+    params, rels, agree = _logit_parity(
+        cfg, S, alt, device,
+        pin=_routing_pin(routing) if cfg.moe.enabled else None)
     bounds = [max(LOGIT_REL_TOL, 2 * r) for r in rels.get("alt", [0.0] * 5)]
+    extra = {}
+    if cfg.moe.enabled:
+        extra = {"unpinned_logit_rel_err": rels["unpinned"],
+                 "routing": [_routing_diff(cfg, routing, f"s{i}_kernel",
+                                           f"s{i}_naive") for i in range(5)]}
     log(phase="parity", arch=arch, dtype=cfg.dtype,
         logit_rel_err=rels["kernel"], token_agreement=agree,
-        plain_spread=rels.get("alt"), bound=bounds)
+        plain_spread=rels.get("alt"), bound=bounds, **extra)
     if any(r > b for r, b in zip(rels["kernel"], bounds)):
         raise AssertionError(f"{arch}: kernel vs plain logits differ by "
                              f"{rels['kernel']} (bounds {bounds})")
@@ -1170,7 +1236,8 @@ def _parity(state, key, device="cuda", arch=None):
     del params
     if device == "cuda":
         _free_cuda()
-    return {"logit_rel_err": rels["kernel"], "token_agreement": agree}
+    return {"logit_rel_err": rels["kernel"], "token_agreement": agree,
+            **extra}
 
 
 def phase_parity(state):
@@ -1428,6 +1495,39 @@ def _engine_kw(ec=ENGINE):
                 prompt_buckets=ec["prompt_buckets"])
 
 
+@contextlib.contextmanager
+def _depth_cut(arch, layers):
+    """``arch`` cut to ``layers`` layers (depth only, full width),
+    registered in the port's arch registry while the block runs; ``arch``
+    itself where it has no more than ``layers`` (the smoke archs of a
+    rehearsal on the CPU)."""
+    from repro_torch.configs import get_arch, registry
+
+    base = get_arch(arch)
+    if layers is None or base.num_layers <= layers:
+        yield arch
+        return
+    names = []
+    _train_cut(base, layers, names)
+    try:
+        yield names[0]
+    finally:
+        registry.ARCHS.pop(names[0], None)
+
+
+def _reference_tokens(state, arch, device):
+    """Run (a)'s tokens at ``arch``: the engine phase's own where ``arch``
+    is its model, else the 24 requests served once single-step through the
+    runtime (``_engine_served``), kept in ``state`` for the next phase at
+    the same cut.  Returns (tokens, where they come from)."""
+    if arch == ENGINE["arch"] and "engine_tokens" in state:
+        return state["engine_tokens"], "engine phase run (a)"
+    refs = state.setdefault("reference_tokens", {})
+    if arch not in refs:
+        refs[arch] = _engine_served(arch, device, 1, 0, "ref")[0]
+    return refs[arch], f"run (a) at {arch}"
+
+
 def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device,
                       ec=ENGINE):
     """Every request completed with its token count; the kernels the path
@@ -1561,13 +1661,15 @@ def _engine_served(arch, device, fuse, async_depth, tag, ec=ENGINE):
     return tokens, stats
 
 
-def _paged_logit_check(eng, mon, cfg):
+def _paged_logit_check(eng, mon, cfg, capture=None):
     """One decode step of every lane on the engine's own pool, on the
     paged kernel path and on ``impl="naive"`` (gather + sdpa_naive), on
     copies of the pool; max|logit diff| / max|logit| over the active
     lanes.  Then the kernel path's step again, warm: timed, and traced
     (device time, busy share, launches).  These launches are comparisons
-    and measurements: the counts are restored."""
+    and measurements: the counts are restored.  ``capture(tag)``, a
+    context manager, wraps each path's compared step (tags "kernel",
+    "naive")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1586,9 +1688,10 @@ def _paged_logit_check(eng, mon, cfg):
         for impl in ("kernel", "naive"):
             b = build_model(cfg, cache_margin=0, decode_impl=impl)
             pool = tree_map(torch.clone, buf["kv_pool"])
-            logits, _ = b.decode_paged_fn(buf["params"], buf["toks"][:, 0],
-                                          buf["pos"], pool,
-                                          buf["block_table"])
+            with capture(impl) if capture else contextlib.nullcontext():
+                logits, _ = b.decode_paged_fn(
+                    buf["params"], buf["toks"][:, 0], buf["pos"], pool,
+                    buf["block_table"])
             out[impl] = logits.float()[active]
             if impl == "kernel":
                 def step():
@@ -1608,17 +1711,20 @@ def _paged_logit_check(eng, mon, cfg):
     rel = ((out["kernel"] - ref).abs().max() / ref.abs().max()).item()
     agree = (out["kernel"].argmax(-1) == ref.argmax(-1)).float().mean()
     return {"logit_rel_err": rel, "token_agreement": agree.item(),
-            "lanes": int(active.sum()), "bound": LOGIT_REL_TOL,
+            "lanes": int(active.sum()),
+            "active_rows": active.nonzero().flatten().tolist(),
+            "bound": LOGIT_REL_TOL,
             "decode_step_warm_s": step_s, "decode_trace": trace}
 
 
-def _prefill_logit_check(eng, mon, cfg):
+def _prefill_logit_check(eng, mon, cfg, capture=None):
     """One admission's prefill per prompt bucket, at the engine's shape
     (batch 1, the first request of the workload that the bucket takes,
     right-padded as the engine pads it), on the engine's weights: the
     kernel path (K2, one launch a layer) against ``prefill_impl="naive"``,
     max|logit diff| / max|logit| of the first token's logits.  These
-    launches are comparisons: the counts are restored."""
+    launches are comparisons: the counts are restored.  ``capture(tag)``
+    wraps each prefill (tags "p<bucket>_kernel", "p<bucket>_naive")."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1638,8 +1744,10 @@ def _prefill_logit_check(eng, mon, cfg):
             for impl in ("kernel", "naive"):
                 b = build_model(cfg, cache_margin=0, prefill_impl=impl)
                 n0 = flash_attention.launches
-                logits[impl] = b.prefill_fn(params,
-                                            {"tokens": prompt})[0].float()
+                with capture(f"p{P}_{impl}") if capture \
+                        else contextlib.nullcontext():
+                    logits[impl] = b.prefill_fn(
+                        params, {"tokens": prompt})[0].float()
                 n = flash_attention.launches - n0
                 if n != (cfg.num_layers if impl == "kernel" else 0):
                     raise AssertionError(f"prefill {P} ({impl}): {n} K2 "
@@ -1657,7 +1765,7 @@ def _prefill_logit_check(eng, mon, cfg):
     return out
 
 
-def _engine_evicting(arch, device, logit_at=6, every=4):
+def _engine_evicting(arch, device, logit_at=6, every=16):
     """Run (c): the same workload through the engine on a monitor, evicted
     and resumed every ``every`` iterations while lanes are in flight
     (``equivalence.run_transcript``); at iteration ``logit_at``, one
@@ -1718,7 +1826,8 @@ def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
     paged engine three ways: (a) single-step decode and (b) 8 steps fused
     per EXECUTE with one EXECUTE in flight, both through
     RequestRouter -> EngineServeTask -> FunkyRuntime; (c) run (a) on a
-    monitor with evict/resume every 4 iterations.  Gates: every request
+    monitor with evict/resume every 16 iterations (each resume copies the
+    17.9 GB of weights back).  Gates: every request
     completes with its token count, the three transcripts are identical,
     exact launch counts, at least one OOM preemption and one compaction,
     an evict that saves fewer pages than the pool, and the logits of a
@@ -1729,7 +1838,7 @@ def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
     b_tok, b = _engine_served(arch, device, 8, 1, "b")
     log(phase="engine", run="b_fused8_async1", card=state.get("card"), **b)
     c_tok, c, evicts, checks, prefill_checks = _engine_evicting(arch, device)
-    log(phase="engine", run="c_evict_resume_every4", card=state.get("card"),
+    log(phase="engine", run="c_evict_resume_every16", card=state.get("card"),
         evicts=len(evicts), evict_first=evicts[0] if evicts else None,
         evict_last=evicts[-1] if evicts else None, logit_check=checks,
         prefill_logit_check=prefill_checks, **c)
@@ -1765,10 +1874,14 @@ def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
 #     reserved mode
 # ---------------------------------------------------------------------------
 
-# (d) the engine phase's configuration and its first 8 requests; (e) two
+# yi-9b at full width cut to ``layers`` of its 48 (a whole run took 82-134
+# s of a script near its time limit; the decode step is host-bound, so its
+# time goes with the depth); (d) the engine phase's configuration and its
+# first 8 requests; (e) two
 # 48-token system prefixes (3 pages of 16), four requests each with its
 # own 16-token tail; (f) and (g) 8 prompts of 128 tokens, 32 new tokens
-FEATURES = dict(arch="yi-9b", d_requests=8, slots=8, page_size=16,
+FEATURES = dict(arch="yi-9b", layers=12, d_requests=8, slots=8,
+                page_size=16,
                 e_prefix=48, e_tail=16, e_new=16, f_prompt=128, f_new=32,
                 f_k=3, f_k_reject=2, logit_at=4, max_phase_s=240,
                 max_peak_gb=45, mem_cap=64 << 30)
@@ -2196,14 +2309,20 @@ def _features_spec(fc, device):
 
 
 def phase_features(state, device="cuda", cut=None):
-    """The engine's features at full-width yi-9b (bf16, random weights from
-    seed 0): (d) tracing, (e) the prefix cache, (f) speculative decode and
-    (g) reserved mode (see the functions above for each one's gates).  The
-    phase holds under ``max_phase_s`` and ``max_peak_gb``.  ``cut``
-    overrides ``FEATURES`` (a rehearsal on the CPU at smoke size)."""
+    """The engine's features at full-width yi-9b cut to ``layers`` layers
+    (bf16, random weights from seed 0): (d) tracing, (e) the prefix cache,
+    (f) speculative decode and (g) reserved mode (see the functions above
+    for each one's gates).  The phase holds under ``max_phase_s`` and
+    ``max_peak_gb``.  ``cut`` overrides ``FEATURES`` (a rehearsal on the
+    CPU at smoke size)."""
+    fc = dict(FEATURES, **(cut or {}))
+    with _depth_cut(fc["arch"], fc["layers"]) as arch:
+        _features(state, dict(fc, arch=arch), device)
+
+
+def _features(state, fc, device):
     import torch
 
-    fc = dict(FEATURES, **(cut or {}))
     t_phase = time.perf_counter()
     if device == "cuda":
         _free_cuda()
@@ -2224,7 +2343,7 @@ def phase_features(state, device="cuda", cut=None):
     for run in f.values():
         launches.update(run["launches"])
     spec = [f["self_draft"]["launches"], f["antigreedy"]["launches"]]
-    stats = {"phase_s": time.perf_counter() - t_phase,
+    stats = {"arch": fc["arch"], "phase_s": time.perf_counter() - t_phase,
              "launches": {k: launches.get(k, 0) for k in _wrappers()},
              # the counts by call pattern, each measured: K1 paged at one
              # lane (the wrapper's own count: prefill_chunk), in the spec
@@ -2259,8 +2378,9 @@ def phase_features(state, device="cuda", cut=None):
 # pool holds every lane at its limit; the engine phase's model, pages,
 # buckets and caps.  (b) tears the transfers in ``torn_at`` (1-based, over
 # the run's transfer attempts).  ``ref_pool`` is the mixed engine's pool
-# when the phase runs without the engine phase's tokens.
-DISAGG = dict(arch="yi-9b", prefill_slots=2, decode_slots=14,
+# in a rehearsal.  yi-9b is cut to ``layers`` of its 48, as in the
+# features phase.
+DISAGG = dict(arch="yi-9b", layers=12, prefill_slots=2, decode_slots=14,
               decode_fuse=8, decode_async=1,
               page_size=ENGINE["page_size"],
               prompt_buckets=ENGINE["prompt_buckets"],
@@ -2494,34 +2614,40 @@ def _first_divergence(got, want):
 
 
 def phase_disagg(state, device="cuda", cut=None):
-    """Prefill/decode disaggregation at full-width yi-9b (bf16, weights
-    from seed 0 on both replicas): the engine phase's 24 requests through
-    RequestRouter -> prefill replica -> FunkyCL -> Monitor, then the KV
-    handoff (TransferQueue) -> decode replica -> FunkyCL -> Monitor.
-    (a) the tokens of the engine phase's run (a) (of one mixed engine when
-    the phase runs alone), at least one handoff; (b) the same with the
+    """Prefill/decode disaggregation at full-width yi-9b cut to
+    ``layers`` layers (bf16, weights from seed 0 on both replicas): the
+    engine phase's 24 requests through RequestRouter -> prefill replica ->
+    FunkyCL -> Monitor, then the KV handoff (TransferQueue) -> decode
+    replica -> FunkyCL -> Monitor.  (a) the tokens of the engine phase's
+    run (a) at the same depth (``_reference_tokens``; of one mixed engine
+    in a rehearsal), at least one handoff; (b) the same with the
     transfers in ``torn_at`` torn: each replays through its lease, every
     request completes once with (a)'s tokens; (c) the decode replica's
     first step after its first install, kernel path within LOGIT_REL_TOL of
-    the plain path.  Exact launches over both replicas (K2 48 per
-    admission, K1 paged 48 per decode step, dense K1 none), under
-    ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides ``DISAGG`` (a
-    rehearsal on the CPU at smoke size)."""
+    the plain path.  Exact launches over both replicas (K2 once a layer
+    per admission, K1 paged once a layer per decode step, dense K1 none),
+    under ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides
+    ``DISAGG`` (a rehearsal on the CPU at smoke size)."""
+    dc = dict(DISAGG, **(cut or {}))
+    with _depth_cut(dc["arch"], dc["layers"]) as arch:
+        _disagg(state, dict(dc, arch=arch), device, cut)
+
+
+def _disagg(state, dc, device, cut):
     import torch
 
     from repro_torch.chaos import FaultPlan, FaultSpec
     from repro_torch.configs import get_arch
     from repro_torch.scaling.metrics import MetricsRegistry
 
-    dc = dict(DISAGG, **(cut or {}))
     cfg = get_arch(dc["arch"])
     t_phase = time.perf_counter()
     if device == "cuda":
         _free_cuda()
         torch.cuda.reset_peak_memory_stats()
-    ref = state.get("engine_tokens") if cut is None else None
-    ref_from = "engine phase run (a)"
-    if ref is None:
+    if cut is None:
+        ref, ref_from = _reference_tokens(state, dc["arch"], device)
+    else:
         ref = _disagg_reference(dc, device, cfg.vocab_size)
         ref_from = "one mixed engine in this phase"
     reg = MetricsRegistry()
@@ -2549,7 +2675,7 @@ def phase_disagg(state, device="cuda", cut=None):
         del pair
     if device == "cuda":
         _free_cuda()
-    stats = {"phase_s": time.perf_counter() - t_phase,
+    stats = {"arch": dc["arch"], "phase_s": time.perf_counter() - t_phase,
              "launches": {k: a["launches"].get(k, 0)
                           + b["launches"].get(k, 0) for k in _wrappers()},
              # counted by the wrapper at the decode replica's shape
@@ -2597,10 +2723,13 @@ def phase_disagg(state, device="cuda", cut=None):
 # ---------------------------------------------------------------------------
 
 # two nodes on the one card, each with two slices of 36 GiB (node0 holds
-# the clone and the restored replica at once; one replica peaks at 18.1
-# GB); commands land after these many iterations of the serving replica
-CRI = dict(slices=2, mem_cap=36 << 30, ckpt1_at=4, gap=4, wave1=12,
-           need_bytes=20e9)
+# the clone and the restored replica at once); commands land after these
+# many iterations of the serving replica.  yi-9b is cut to ``layers`` of
+# its 48 (5.2 GB of weights; at full depth a snapshot of 17.9 GB took 56 s
+# to write and hash and the restore 62 s to read and verify, warm, on a
+# script near its time limit)
+CRI = dict(layers=12, slices=2, mem_cap=36 << 30, ckpt1_at=4, gap=4,
+           wave1=12, need_bytes=8e9)
 
 
 def _decode_ms(eng):
@@ -2614,8 +2743,10 @@ def _interval_ms(a, b):
     return {"decode_steps": n, "decode_step_ms": s / n * 1e3 if n else None}
 
 
-def phase_cri(state, arch=ENGINE["arch"], device="cuda"):
-    """Run (a)'s workload on full-width yi-9b through NodeAgent ->
+def phase_cri(state, arch=ENGINE["arch"], device="cuda",
+              layers=CRI["layers"]):
+    """Run (a)'s workload on full-width yi-9b cut to ``layers`` layers
+    through NodeAgent ->
     ContainerEngine (CRI) -> FunkyRuntime -> FunkyCL -> Monitor on two
     nodes wired as ``make_cluster`` wires them (no orchestrator): deploy
     on node0; checkpoint (snapshot 1, full); checkpoint with ``ckpt.corrupt``
@@ -2625,7 +2756,8 @@ def phase_cri(state, arch=ENGINE["arch"], device="cuda"):
     replica's leases); restore on node0 from the newest snapshot of both
     nodes' roots, which falls back to snapshot 1; the last 12 requests
     arrive once the restored replica runs; drain and remove both.  Gates:
-    every request completes once with run (a)'s tokens, no duplicates or
+    every request completes once with run (a)'s tokens at the same depth
+    (``_reference_tokens``), no duplicates or
     replay mismatches, exact launch counts over every replica's engine,
     snapshot 2 reuses ``params``, the restore falls back with a
     ``restore_fallback`` event.  Snapshots go under a temporary directory,
@@ -2635,24 +2767,26 @@ def phase_cri(state, arch=ENGINE["arch"], device="cuda"):
 
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(arch)
-    want = state["engine_tokens"]
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="funky-cri-")
-    usage = shutil.disk_usage(root)
-    log(phase="cri", ckpt_dir=root, disk_total=usage.total,
-        disk_used=usage.used, disk_free=usage.free)
-    try:
-        if usage.free < CRI["need_bytes"]:
-            raise RuntimeError(
-                f"cri: {usage.free / 1e9:.1f} GB free under {root}; the "
-                f"phase writes about 18.5 GB of snapshots (needs "
-                f"{CRI['need_bytes'] / 1e9:.0f} GB)")
-        _cri(state, cfg, arch, device, want, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-        if device == "cuda":
-            _free_cuda()
+    with _depth_cut(arch, layers) as arch:
+        cfg = get_arch(arch)
+        want, want_from = _reference_tokens(state, arch, device)
+        root = tempfile.mkdtemp(prefix="funky-cri-")
+        usage = shutil.disk_usage(root)
+        log(phase="cri", arch=arch, reference=want_from, ckpt_dir=root,
+            disk_total=usage.total, disk_used=usage.used,
+            disk_free=usage.free)
+        try:
+            if usage.free < CRI["need_bytes"]:
+                raise RuntimeError(
+                    f"cri: {usage.free / 1e9:.1f} GB free under {root}; the "
+                    f"phase writes about 5.5 GB of snapshots (needs "
+                    f"{CRI['need_bytes'] / 1e9:.0f} GB)")
+            _cri(state, cfg, arch, device, want, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            if device == "cuda":
+                _free_cuda()
     log(phase="cri", phase_s=time.perf_counter() - t_phase)
 
 
@@ -3871,11 +4005,12 @@ DENSE_ARCHS = dict(keys=("qwen3", "stablelm", "starcoder2"), archs=None,
                    logit_at=6, max_phase_s=200)
 
 
-def _dense_logit_checks(arch, device, ec, logit_at):
+def _dense_logit_checks(arch, device, ec, logit_at, capture=None):
     """The engine at ``ec`` on a monitor, stepped to iteration
     ``logit_at`` with lanes in flight: one paged decode step's and each
     bucket's B 1 prefill's kernel-path logits against the plain path's
-    (``_paged_logit_check``, ``_prefill_logit_check``; on the card only)."""
+    (``_paged_logit_check``, ``_prefill_logit_check``, each given
+    ``capture``; on the card only)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import FunkyCL, Monitor, SliceAllocator
     from repro_torch.scaling.metrics import MetricsRegistry
@@ -3899,8 +4034,8 @@ def _dense_logit_checks(arch, device, ec, logit_at):
                                  f"{logit_at}")
         if device != "cuda":
             return None, []
-        return (_paged_logit_check(eng, mon, cfg),
-                _prefill_logit_check(eng, mon, cfg))
+        return (_paged_logit_check(eng, mon, cfg, capture),
+                _prefill_logit_check(eng, mon, cfg, capture))
     finally:
         mon.vfpga_exit()
         del mon
@@ -3908,20 +4043,93 @@ def _dense_logit_checks(arch, device, ec, logit_at):
             _free_cuda()
 
 
+def _arch_run(state, key, arch, device, ec, logit_at, serve_prompt=None,
+              capture=None):
+    """One arch of the dense_archs and moe phases, freed before it
+    returns: (a) served through the runtime with exact launch counts
+    (``PATHS[key]``), (b) kernel path against plain path
+    (``_parity``), (c) the engine at ``ec`` single-step and 8 fused with
+    one EXECUTE ahead (same tokens; K2 once a layer per admission, K1
+    paged once a layer per decode step, dense K1 never), (d) a paged
+    decode step's and each bucket's prefill's logits
+    (``_dense_logit_checks``, given ``capture``).  Returns the arch's
+    record (its peak GB over all four on the card) and the engine runs'
+    launches.  ``serve_prompt`` replaces the path's prompt in (a)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t_arch, peaks = time.perf_counter(), []
+
+    def peak():
+        if device == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    a = _serve(state, key, device, arch, serve_prompt)
+    peak()
+    b = _parity(state, key, device, arch)
+    peak()
+    a_tok, ca = _engine_served(arch, device, 1, 0, f"{key}-a", ec)
+    peak()
+    b_tok, cb = _engine_served(arch, device, 8, 1, f"{key}-b", ec)
+    peak()
+    if b_tok != a_tok:
+        raise AssertionError(f"{arch}: fused tokens differ from single-step:"
+                             f" {_first_divergence(b_tok, a_tok)}")
+    check, prefill_checks = _dense_logit_checks(arch, device, ec, logit_at,
+                                                capture)
+    peak()
+    launches = collections.Counter()
+    for run in (ca, cb):
+        launches.update(run["launches"])
+    rec = {"arch": arch, "layers": cfg.num_layers, "serve": a, "parity": b,
+           "engine": {run: {k: st[k] for k in (
+               "wall_s", "ttft_p50_s", "ttft_p99_s", "decode_tokens_per_s",
+               "tbt_req_mean_p50_s", "decode_steps", "prefills",
+               "launches")}
+               for run, st in (("a_single_step", ca),
+                               ("b_fused8_async1", cb))},
+           "logit_check": check, "prefill_logit_check": prefill_checks,
+           "arch_s": time.perf_counter() - t_arch}
+    if check is not None:
+        rec["decode_step_warm_ms"] = check["decode_step_warm_s"] * 1e3
+        rec["decode_trace"] = check["decode_trace"]
+    if device == "cuda":
+        rec["peak_gb"] = max(peaks)
+    return rec, launches
+
+
+def _logit_gate(rec, ec):
+    """An arch run's paged decode step and every bucket's prefill within
+    LOGIT_REL_TOL (on the card; with the routing diffs, where logged)."""
+    check, pre = rec["logit_check"], rec["prefill_logit_check"]
+    if (check["logit_rel_err"] > LOGIT_REL_TOL
+            or len(pre) != len(ec["prompt_buckets"])
+            or any(p["logit_rel_err"] > LOGIT_REL_TOL for p in pre)):
+        raise AssertionError(
+            f"{rec['arch']}: kernel vs plain logits: decode "
+            f"{check['logit_rel_err']} (routing "
+            f"{rec.get('decode_routing')}), prefill {pre} (routing "
+            f"{rec.get('prefill_routing')})")
+
+
 def phase_dense_archs(state, device="cuda", cut=None):
     """qwen3-8b (qk-norm), stablelm-3b (LayerNorm, rotary on a quarter of
     hd 80, MHA) and starcoder2-15b (LayerNorm, GELU, group 12) at full
-    width, one after another, each freed before the next: (a) served
-    through the runtime with exact launch counts (``PATHS``), (b) kernel
-    path against plain path within LOGIT_REL_TOL, (c) the engine path of
-    ``DENSE_ARCHS`` (single-step and fused transcripts identical; K2 once a
-    layer per admission, K1 paged once a layer per decode step, dense K1
-    never; a paged decode step's and each bucket's prefill's logits within
-    LOGIT_REL_TOL).  The phase holds under ``max_phase_s``.  ``cut``
-    overrides ``DENSE_ARCHS`` (``archs`` and ``serve_prompt`` replace the
-    paths' archs and prompt: a rehearsal on the CPU at smoke size)."""
-    import torch
-
+    width, one after another, each freed before the next (``_arch_run``):
+    (a) served through the runtime with exact launch counts (``PATHS``),
+    (b) kernel path against plain path within LOGIT_REL_TOL, (c) the engine
+    path of ``DENSE_ARCHS`` (single-step and fused transcripts identical;
+    K2 once a layer per admission, K1 paged once a layer per decode step,
+    dense K1 never; a paged decode step's and each bucket's prefill's
+    logits within LOGIT_REL_TOL).  The phase holds under ``max_phase_s``.
+    ``cut`` overrides ``DENSE_ARCHS`` (``archs`` and ``serve_prompt``
+    replace the paths' archs and prompt: a rehearsal on the CPU at smoke
+    size)."""
     from repro_torch.configs import get_arch
 
     dc = dict(DENSE_ARCHS, **(cut or {}))
@@ -3929,52 +4137,18 @@ def phase_dense_archs(state, device="cuda", cut=None):
     archs = dc["archs"] or tuple(PATHS[k][0] for k in dc["keys"])
     out, launches = {}, collections.Counter()
     for key, arch in zip(dc["keys"], archs):
-        t_arch = time.perf_counter()
-        if device == "cuda":
-            _free_cuda()
-            torch.cuda.reset_peak_memory_stats()
         cfg = get_arch(arch)
-        a = _serve(state, key, device, arch, dc["serve_prompt"])
-        b = _parity(state, key, device, arch)
-        a_tok, ca = _engine_served(arch, device, 1, 0, f"{key}-a", ec)
-        b_tok, cb = _engine_served(arch, device, 8, 1, f"{key}-b", ec)
-        if b_tok != a_tok:
-            raise AssertionError(f"dense_archs {arch}: fused tokens differ "
-                                 f"from single-step: "
-                                 f"{_first_divergence(b_tok, a_tok)}")
-        check, prefill_checks = _dense_logit_checks(arch, device, ec,
-                                                    dc["logit_at"])
-        for run in (ca, cb):
-            launches.update(run["launches"])
-        L = cfg.num_layers
-        rec = {"arch": arch, "layers": L, "head_dim": cfg.head_dim_,
-               "heads": [cfg.num_heads, cfg.num_kv_heads],
-               "norm": cfg.norm_kind, "qk_norm": cfg.qk_norm,
-               "mlp": cfg.mlp_kind, "rope_pct": cfg.rope_pct,
-               "serve": a, "parity": b,
-               "engine": {run: {k: st[k] for k in (
-                   "wall_s", "ttft_p50_s", "ttft_p99_s",
-                   "decode_tokens_per_s", "tbt_req_mean_p50_s",
-                   "decode_steps", "prefills", "launches")}
-                   for run, st in (("a_single_step", ca),
-                                   ("b_fused8_async1", cb))},
-               "logit_check": check, "prefill_logit_check": prefill_checks,
-               "arch_s": time.perf_counter() - t_arch}
-        if check is not None:
-            rec["decode_step_warm_ms"] = check["decode_step_warm_s"] * 1e3
-            rec["decode_trace"] = check["decode_trace"]
-        if device == "cuda":
-            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec, runs = _arch_run(state, key, arch, device, ec, dc["logit_at"],
+                              dc["serve_prompt"])
+        launches.update(runs)
+        rec.update(head_dim=cfg.head_dim_,
+                   heads=[cfg.num_heads, cfg.num_kv_heads],
+                   norm=cfg.norm_kind, qk_norm=cfg.qk_norm,
+                   mlp=cfg.mlp_kind, rope_pct=cfg.rope_pct)
         log(phase="dense_archs", card=state.get("card"), **rec)
         out[key] = rec
-        if device == "cuda" and (
-                check["logit_rel_err"] > LOGIT_REL_TOL
-                or len(prefill_checks) != len(ec["prompt_buckets"])
-                or any(p["logit_rel_err"] > LOGIT_REL_TOL
-                       for p in prefill_checks)):
-            raise AssertionError(f"dense_archs {arch}: kernel vs plain "
-                                 f"logits: decode {check['logit_rel_err']}"
-                                 f", prefill {prefill_checks}")
+        if device == "cuda":
+            _logit_gate(rec, ec)
     stats = {"phase_s": time.perf_counter() - t_phase,
              "launches": {k: launches.get(k, 0) for k in _wrappers()}}
     log(phase="dense_archs", card=state.get("card"), summary=stats)
@@ -3984,6 +4158,182 @@ def phase_dense_archs(state, device="cuda", cut=None):
         raise AssertionError(f"dense_archs: the phase took "
                              f"{stats['phase_s']:.1f} s, over "
                              f"{dc['max_phase_s']} s")
+
+
+# ---------------------------------------------------------------------------
+# 21. the MoE family
+# ---------------------------------------------------------------------------
+
+MOE = dict(key="deepseek_moe", arch=None, serve_prompt=None,
+           engine=dict(ENGINE, n_requests=8), logit_at=6, max_phase_s=150,
+           max_peak_gb=45)
+
+
+def _routing_pin(store):
+    """A ``capture`` that holds the plain path to the kernel path's
+    routing.  Under a tag ending in "kernel", every MoE block's top-k
+    expert ids are recorded in ``store[tag]``, one (rows, k) CPU tensor a
+    block; under the same tag ending in "naive", run after it, each block
+    takes the recorded ids in the same order, with its router's
+    probabilities of them as gates, and the ids its own router picks are
+    recorded in ``store[tag]`` for ``_routing_diff``.  The top-k is
+    discontinuous: a bf16 rounding difference upstream flips a near-tie,
+    and a flip moves a token's logits, and through the capacity its
+    neighbours', by far more than the attention kernels' rounding; with
+    the routing held, the logit gates see the kernels."""
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def capture(tag):
+        inner, calls = moe._top_k, store.setdefault(tag, [])
+        replay = (iter(store[tag[:-len("naive")] + "kernel"])
+                  if tag.endswith("naive") else None)
+
+        def pinned(probs, k):
+            top_p, top_e = inner(probs, k)
+            calls.append(top_e.cpu())
+            if replay is None:
+                return top_p, top_e
+            top_e = next(replay).to(probs.device)
+            return probs.gather(-1, top_e), top_e
+
+        moe._top_k = pinned
+        try:
+            yield
+        finally:
+            moe._top_k = inner
+    return capture
+
+
+def _routing_diff(cfg, store, a, b, rows=None):
+    """Rows whose top-k expert set differs between the paths ``a`` and
+    ``b`` over all MoE blocks (only ``rows``, e.g. the active lanes, when
+    given), and the first: its layer, its row and the two sets."""
+    n, first = 0, None
+    for i, (ea, eb) in enumerate(zip(store.get(a, []), store.get(b, []))):
+        sa, sb = ea.sort(-1)[0], eb.sort(-1)[0]
+        if rows is not None:
+            sa, sb = sa[rows], sb[rows]
+        bad = (sa != sb).any(-1).nonzero().flatten().tolist()
+        n += len(bad)
+        if bad and first is None:
+            r = bad[0]
+            first = {"layer": cfg.moe.n_dense_layers + i,
+                     "row": rows[r] if rows is not None else r,
+                     "experts_kernel": sa[r].tolist(),
+                     "experts_plain": sb[r].tolist()}
+    return {"moe_blocks": len(store.get(a, [])), "rows_differing": n,
+            "first": first}
+
+
+def _expert_path(cfg, live, reps=10):
+    """Device time of one MoE block's ``moe_fwd`` at the paged decode's
+    shape (``DECODE_ROWS`` rows, ``live`` lanes; random weights of one
+    block and random unit-variance rows), from a trace, by kernel name:
+    the GEMMs (the three expert bmm's, the shared experts' matmuls, the
+    router's) and the other ops (routing, dispatch, combine, elementwise);
+    times the model's MoE blocks, the expert path of one decode step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.moe import init_moe, moe_fwd
+    from repro_torch.models.transformer import DECODE_ROWS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = init_moe(cfg, torch.device("cuda"), gen)
+    x = torch.randn((DECODE_ROWS, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        def run():
+            moe_fwd(cfg, p, x, live=live, aux=False)
+
+        timed(run, 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = timed(run, reps)
+    by_name, launches = collections.Counter(), 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] += e.self_device_time_total / 1e3 / reps
+        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cuLaunchKernelEx", "cudaLaunchKernelExC"):
+            launches += e.count / reps
+    gemm = sum(ms for k, ms in by_name.items()
+               if any(g in k.lower() for g in GEMM_SYMBOLS))
+    block = sum(by_name.values())
+    n_moe = cfg.num_layers - cfg.moe.n_dense_layers
+    del p, x
+    return {"rows": DECODE_ROWS, "live": live, "block_device_ms": block,
+            "block_gemm_ms": gemm, "block_other_ms": block - gemm,
+            "block_wall_ms": wall * 1e3 / reps,
+            "block_launches": launches, "moe_blocks": n_moe,
+            "step_device_ms": block * n_moe,
+            "kernels": [{"kernel": k[:90], "ms": ms}
+                        for k, ms in by_name.most_common(10)]}
+
+
+def phase_moe(state, device="cuda", cut=None):
+    """deepseek-moe-16b at full width and depth (28 layers, 64 routed
+    experts top-6 and 2 shared, MHA 16/16 heads of 128; 16.4 B parameters):
+    (a) served through the runtime with exact launch counts (``PATHS``),
+    (b) kernel path against plain path within LOGIT_REL_TOL, (c) the
+    engine path of ``MOE`` (single-step and fused transcripts identical;
+    K2 28 per admission, K1 paged 28 per decode step, dense K1 never),
+    (d) a paged decode step's and each bucket's prefill's logits within
+    LOGIT_REL_TOL.  In (b) and (d) the plain path takes the kernel path's
+    routing (``_routing_pin``), and the log counts the rows whose top-k
+    expert set its own router would have picked otherwise, with the first
+    one's layer, row and two sets; (b) also logs the logits against the
+    plain path on its own routing (not gated).  Then the warm decode
+    step's trace and the expert path's device time (``_expert_path``).
+    The phase holds under ``max_phase_s`` and ``max_peak_gb``.  ``cut``
+    overrides ``MOE`` (``arch`` and ``serve_prompt`` replace the path's: a
+    rehearsal on the CPU at smoke size)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    mc = dict(MOE, **(cut or {}))
+    ec, key, t_phase = mc["engine"], mc["key"], time.perf_counter()
+    arch = mc["arch"] or PATHS[key][0]
+    cfg = get_arch(arch)
+    if device == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
+                             torch.get_float32_matmul_precision()
+                             != "highest"):
+        raise AssertionError("moe: TF32 is enabled")
+    routing = {}
+    rec, launches = _arch_run(state, key, arch, device, ec, mc["logit_at"],
+                              mc["serve_prompt"], _routing_pin(routing))
+    rec.update(experts=[cfg.moe.num_experts, cfg.moe.top_k,
+                        cfg.moe.num_shared_experts],
+               params=cfg.param_count())
+    check = rec["logit_check"]
+    if check is not None:
+        rec["decode_routing"] = _routing_diff(cfg, routing, "kernel",
+                                              "naive", check["active_rows"])
+        rec["prefill_routing"] = {
+            P: _routing_diff(cfg, routing, f"p{P}_kernel", f"p{P}_naive")
+            for P in ec["prompt_buckets"]}
+        rec["expert_path"] = _expert_path(cfg, ec["slots"])
+        rec["expert_path_share"] = (rec["expert_path"]["step_device_ms"]
+                                    / check["decode_trace"]["device_ms"])
+        rec["peak_gb"] = max(rec["peak_gb"],
+                             torch.cuda.max_memory_allocated() / 1e9)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(phase="moe", card=state.get("card"), **rec)
+    state.setdefault("launches", {})["moe"] = {
+        k: launches.get(k, 0) for k in _wrappers()}
+    state["moe"] = {key: rec, "phase_s": rec["phase_s"]}
+    if device != "cuda":
+        return
+    _logit_gate(rec, ec)
+    if rec["peak_gb"] > mc["max_peak_gb"]:
+        raise AssertionError(f"moe: peak {rec['peak_gb']:.2f} GB, over "
+                             f"{mc['max_peak_gb']} GB")
+    if rec["phase_s"] > mc["max_phase_s"]:
+        raise AssertionError(f"moe: the phase took {rec['phase_s']:.1f} s, "
+                             f"over {mc['max_phase_s']} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4073,15 +4423,16 @@ def kernel_line(state):
             "library_ms": r.get("library_device_ms"),
             **({"gather_dense_ms": r["gather_dense_ms"]}
                if "gather_dense_ms" in r else {})})
-    # the dense_archs phase's shapes (bf16): K2 and K1 dense with their
-    # served path's launches, K1 paged with its engine runs' (K2's engine
-    # launches beside); stablelm-3b at hd 80, starcoder2-15b at group 12,
-    # qwen3-8b at 32/8
-    dense = state["dense_archs"]
-    for key, case in (("stablelm", "hd80_path"), ("starcoder2", "g12_path"),
-                      ("qwen3", "qwen3_path")):
+    # the dense_archs and moe phases' shapes (bf16): K2 and K1 dense with
+    # their served path's launches, K1 paged with its engine runs' (K2's
+    # engine launches beside); stablelm-3b at hd 80, starcoder2-15b at
+    # group 12, qwen3-8b at 32/8, deepseek-moe-16b at 16/16 (hd 128)
+    for phase, key, case in (("dense_archs", "stablelm", "hd80_path"),
+                             ("dense_archs", "starcoder2", "g12_path"),
+                             ("dense_archs", "qwen3", "qwen3_path"),
+                             ("moe", "deepseek_moe", "mha128_path")):
         eng = collections.Counter()
-        for run in dense[key]["engine"].values():
+        for run in state[phase][key]["engine"].values():
             eng.update(run["launches"])
         for kkey, name, kfile, line, launches, extra in (
                 ("k2", "flash_attention", "flash_attention", 95,

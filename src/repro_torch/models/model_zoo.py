@@ -1,4 +1,4 @@
-"""Model zoo: one ``build_model`` entry point (dense, ssm and hybrid
+"""Model zoo: one ``build_model`` entry point (dense, moe, ssm and hybrid
 families so far).
 
 ``ModelBundle`` packages the functional API the rest of the port uses:
@@ -12,7 +12,7 @@ families so far).
     cache_specs(batch, max_len)              -> caches as meta tensors
 
 ``decode_paged_fn`` is the serving engine's decode: every lane at its own
-position over the paged KV pool (dense plans; K1's paged entry).
+position over the paged KV pool (attention plans; K1's paged entry).
 
 ``loss_fn`` is training's forward (``lm_loss``): the plain versions only
 (naive attention, as in the reference; the SSD and RG-LRU scans in plain

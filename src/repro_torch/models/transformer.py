@@ -1,4 +1,4 @@
-"""Decoder-only LM composer: the dense, ssm and hybrid families.
+"""Decoder-only LM composer: the dense, moe, ssm and hybrid families.
 
 As in the reference, an architecture is a list of **segments**, each
 ``count`` repetitions of a tuple of block specs, with every segment's
@@ -9,6 +9,7 @@ parameters and caches stacked along a leading ``count`` axis:
     stablelm-3b:      [32 x ("attn+mlp",)]     (LayerNorm, rotary on a
                                                 quarter of hd 80)
     starcoder2-15b:   [40 x ("attn+mlp",)]     (LayerNorm, GELU mlp)
+    deepseek-moe-16b: [1 x ("attn+mlp",), 27 x ("attn+moe",)]
     mamba2:           [48 x ("ssm",)]
     recurrentgemma:   [12 x ("rec+mlp", "rec+mlp", "attn+mlp"),
                        1 x ("rec+mlp", "rec+mlp")]
@@ -18,9 +19,10 @@ and caches are views into the stacked tensors, so decode's in-place cache
 writes (attention ring, SSM state, RG-LRU state, conv windows) land in the
 stacked cache.  Training (``mode="train"``, ``lm_loss``) runs the plain
 forwards under autograd, each repetition optionally rematerialised in the
-backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant).
+backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant),
+and sums the MoE blocks' aux losses into ``lm_loss``'s total.
 ``lm_decode_paged`` is the serving engine's decode over the paged pool
-(dense plans), one step for every lane at its own position.
+(attention plans), one step for every lane at its own position.
 """
 
 from __future__ import annotations
@@ -37,13 +39,14 @@ from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (cross_entropy, embed_fwd, init_embed,
                                        init_mlp, init_norm, lm_head_fwd,
                                        mlp_fwd, norm_fwd)
+from repro_torch.models.moe import init_moe, moe_fwd
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
 class BlockSpec:
     mixer: str            # attn | rec | ssm
-    ffn: str = "mlp"      # mlp | none
+    ffn: str = "mlp"      # mlp | moe | none
     window: int = 0       # sliding-window for attn mixers (0 = full)
     d_ff: int = 0         # mlp hidden size
 
@@ -69,9 +72,19 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
         if rem:
             segs.append(Segment(1, pat[:rem]))
         return segs
-    if cfg.family != "dense" or cfg.moe.enabled:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm, hybrid)")
+    if cfg.moe.enabled:
+        if cfg.mla.enabled:
+            raise NotImplementedError("MLA is not ported yet")
+        segs = []
+        nd = cfg.moe.n_dense_layers
+        if nd:
+            segs.append(Segment(nd, (BlockSpec(
+                "attn", "mlp", d_ff=cfg.moe.dense_d_ff),)))
+        segs.append(Segment(L - nd, (BlockSpec("attn", "moe"),)))
+        return segs
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  "(dense, moe, ssm, hybrid)")
     return [Segment(L, (BlockSpec(
         "attn", "mlp", window=cfg.sliding_window, d_ff=cfg.d_ff),))]
 
@@ -106,11 +119,15 @@ def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
         p["ssm"] = ssm.init_ssm_block(cfg, device, gen, count)
     else:
         raise ValueError(f"mixer {spec.mixer!r} is not ported yet")
-    if spec.ffn == "mlp":
+    if spec.ffn != "none":
         p["norm2"] = init_norm(cfg, cfg.d_model, device, count)
-        p["mlp"] = init_mlp(cfg, cfg.d_model, spec.d_ff, device, gen, count)
-    elif spec.ffn != "none":
-        raise ValueError(f"ffn {spec.ffn!r} is not ported yet")
+        if spec.ffn == "mlp":
+            p["mlp"] = init_mlp(cfg, cfg.d_model, spec.d_ff, device, gen,
+                                count)
+        elif spec.ffn == "moe":
+            p["moe"] = init_moe(cfg, device, gen, count)
+        else:
+            raise ValueError(f"ffn {spec.ffn!r} is not ported yet")
     return p
 
 
@@ -118,8 +135,9 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
                 *, mode: str, cache, pos, prefill_impl: str = "kernel",
                 decode_impl: str = "kernel", prefill_chunk: int = 1024,
                 cache_margin: int = 0):
-    """mode: train | prefill | decode. Returns (x, cache); training has no
-    cache (None).  ``prefill_impl`` "kernel" puts every mixer's prefill on
+    """mode: train | prefill | decode. Returns (x, aux, cache): ``aux`` is
+    an MoE block's aux loss in training, else None; training has no cache
+    (None).  ``prefill_impl`` "kernel" puts every mixer's prefill on
     its CUDA kernel (K2, K3, K4); ``decode_impl`` "kernel" puts attention
     decode on K1 (the SSM and RG-LRU steps are plain tensor code).
     Training runs the plain versions only (naive attention, the plain SSD
@@ -158,9 +176,14 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
     else:
         raise ValueError(f"mixer {spec.mixer!r} is not ported yet")
     x = x + mix
+    aux = None
     if spec.ffn == "mlp":
         x = x + mlp_fwd(cfg, p["mlp"], norm_fwd(cfg, p["norm2"], x))
-    return x, new_cache
+    elif spec.ffn == "moe":
+        out, aux = moe_fwd(cfg, p["moe"], norm_fwd(cfg, p["norm2"], x),
+                           aux=mode == "train")
+        x = x + out
+    return x, aux, new_cache
 
 
 def block_cache_spec(cfg: ModelConfig, spec: BlockSpec, batch: int,
@@ -184,6 +207,13 @@ def init_segment(cfg: ModelConfig, seg: Segment, device, gen) -> dict:
                             for spec in seg.blocks)}
 
 
+def _add_aux(total, aux):
+    """A running sum of MoE aux losses; None until a block has one."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def _maybe_remat(fn, remat: str):
     """``remat`` of the reference: "none" keeps every activation for the
     backward, "full" keeps only each repetition's inputs and recomputes
@@ -202,34 +232,42 @@ def _maybe_remat(fn, remat: str):
 def segment_apply(cfg: ModelConfig, p_stacked: dict, seg: Segment,
                   x: torch.Tensor, *, mode: str, caches=None, pos=None,
                   remat: str = "none", **kw):
+    """Returns (x, aux, caches): ``aux`` the sum of the segment's MoE aux
+    losses in training (None without MoE blocks, and outside training);
+    training has no caches (None)."""
     if mode == "train":
         def body(x, rep_p):
+            aux = None
             for b, spec in enumerate(seg.blocks):
-                x, _ = block_apply(cfg, rep_p["blocks"][b], spec, x,
-                                   mode=mode, cache=None, pos=None, **kw)
-            return x
+                x, a, _ = block_apply(cfg, rep_p["blocks"][b], spec, x,
+                                      mode=mode, cache=None, pos=None, **kw)
+                aux = _add_aux(aux, a)
+            return x, aux
 
         body = _maybe_remat(body, remat)
+        seg_aux = None
         for rep_p in _unstack(p_stacked, seg.count):
-            x = body(x, rep_p)
-        return x, None
+            x, aux = body(x, rep_p)
+            seg_aux = _add_aux(seg_aux, aux)
+        return x, seg_aux, None
     if mode == "prefill":
         per_block = [[] for _ in seg.blocks]
         for i in range(seg.count):
             rep_p = _layer(p_stacked, i)
             for b, spec in enumerate(seg.blocks):
-                x, c = block_apply(cfg, rep_p["blocks"][b], spec, x,
-                                   mode=mode, cache=None, pos=None, **kw)
+                x, _, c = block_apply(cfg, rep_p["blocks"][b], spec, x,
+                                      mode=mode, cache=None, pos=None, **kw)
                 per_block[b].append(c)
         stacked = tuple(tree_map(lambda *xs: torch.stack(xs), cs[0], *cs[1:])
                         for cs in per_block)
-        return x, stacked
+        return x, None, stacked
     for i in range(seg.count):
         rep_p, rep_cache = _layer(p_stacked, i), _layer(caches, i)
         for b, spec in enumerate(seg.blocks):
-            x, _ = block_apply(cfg, rep_p["blocks"][b], spec, x, mode=mode,
-                               cache=rep_cache[b], pos=pos, **kw)
-    return x, caches
+            x, _, _ = block_apply(cfg, rep_p["blocks"][b], spec, x,
+                                  mode=mode, cache=rep_cache[b], pos=pos,
+                                  **kw)
+    return x, None, caches
 
 
 def segment_cache_specs(cfg: ModelConfig, seg: Segment, batch: int,
@@ -258,30 +296,37 @@ def init_lm(cfg: ModelConfig, seed: int, device="cuda") -> dict:
 
 def lm_backbone(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
                 mode: str, caches=None, pos=None, **kw):
-    """Run all segments over input embeddings h. Returns (h, caches);
-    training returns no caches (None)."""
-    caches_out = []
+    """Run all segments over input embeddings h. Returns (h, aux, caches):
+    ``aux`` the MoE aux loss summed over blocks in training (None without
+    MoE blocks, and outside training); training returns no caches
+    (None)."""
+    caches_out, aux = [], None
     for i, seg in enumerate(plan_segments(cfg)):
         seg_cache = caches[i] if caches is not None else None
-        h, c = segment_apply(cfg, params["segments"][i], seg, h, mode=mode,
-                             caches=seg_cache, pos=pos, **kw)
+        h, a, c = segment_apply(cfg, params["segments"][i], seg, h,
+                                mode=mode, caches=seg_cache, pos=pos, **kw)
+        aux = _add_aux(aux, a)
         caches_out.append(c)
     h = norm_fwd(cfg, params["final_norm"], h)
-    return h, (None if mode == "train" else tuple(caches_out))
+    return h, aux, (None if mode == "train" else tuple(caches_out))
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: str = "none"):
     """batch: tokens (B, S) int, targets (B, S) int, optional loss_mask.
-    Returns (loss, {"loss", "aux_loss"}); the ported families have no
-    auxiliary loss (zero)."""
+    Returns (total, {"loss", "aux_loss"}): with MoE blocks total = loss +
+    ``router_aux_weight`` * aux, the aux loss summed over the blocks;
+    without, the aux loss is zero and total is the loss."""
     h = embed_fwd(cfg, params["embed"], batch["tokens"])
-    h, _ = lm_backbone(cfg, params, h, mode="train", remat=remat)
+    h, aux, _ = lm_backbone(cfg, params, h, mode="train", remat=remat)
     logits = lm_head_fwd(cfg, params["embed"], h)
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
-    return loss, {"loss": loss,
-                  "aux_loss": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
+    if aux is None:
+        return loss, {"loss": loss,
+                      "aux_loss": torch.zeros((), dtype=torch.float32,
+                                              device=loss.device)}
+    return loss + cfg.moe.router_aux_weight * aux, {"loss": loss,
+                                                    "aux_loss": aux}
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -289,10 +334,10 @@ def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                cache_margin: int = 0):
     """Returns (last-token logits (B, V), caches)."""
     h = embed_fwd(cfg, params["embed"], batch["tokens"])
-    h, caches = lm_backbone(cfg, params, h, mode="prefill",
-                            prefill_impl=impl, decode_impl="kernel",
-                            prefill_chunk=prefill_chunk,
-                            cache_margin=cache_margin)
+    h, _, caches = lm_backbone(cfg, params, h, mode="prefill",
+                               prefill_impl=impl, decode_impl="kernel",
+                               prefill_chunk=prefill_chunk,
+                               cache_margin=cache_margin)
     logits = lm_head_fwd(cfg, params["embed"], h[:, -1:, :])
     return logits[:, 0, :], caches
 
@@ -306,9 +351,10 @@ def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
     if not inplace:
         caches = tree_map(torch.clone, caches)
     h = embed_fwd(cfg, params["embed"], token[:, None])
-    h, caches = lm_backbone(cfg, params, h, mode="decode", caches=caches,
-                            pos=pos, prefill_impl="kernel", decode_impl=impl,
-                            prefill_chunk=0, cache_margin=0)
+    h, _, caches = lm_backbone(cfg, params, h, mode="decode",
+                               caches=caches, pos=pos, prefill_impl="kernel",
+                               decode_impl=impl, prefill_chunk=0,
+                               cache_margin=0)
     logits = lm_head_fwd(cfg, params["embed"], h)
     return logits[:, 0, :], caches
 
@@ -338,7 +384,8 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
     padded with idle rows to a multiple of ``rows`` (``DECODE_ROWS``; the
     prefix cache's one-lane ``prefill_chunk`` passes 1), which attention
     treats as inactive lanes: K1 gives them zeros and their writes go to the
-    sink page."""
+    sink page.  MoE blocks route the B lanes as the reference engine's
+    per-lane decode does, whatever the padding (``moe_fwd``'s ``live``)."""
     B = token.shape[0]
     pad = -B % rows
     if pad:
@@ -365,6 +412,10 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 if spec.ffn == "mlp":
                     h = h + mlp_fwd(cfg, p["mlp"],
                                     norm_fwd(cfg, p["norm2"], h))
+                elif spec.ffn == "moe":
+                    h = h + moe_fwd(cfg, p["moe"],
+                                    norm_fwd(cfg, p["norm2"], h), live=B,
+                                    aux=False)[0]
     h = norm_fwd(cfg, params["final_norm"], h)
     logits = lm_head_fwd(cfg, params["embed"], h)
     return logits[:B, 0, :], pool

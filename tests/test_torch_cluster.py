@@ -484,7 +484,12 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
     The router holds the burst's backlog until the drive has seen both
     replicas (its ``on_tick`` report): otherwise, on a loaded host, the
     one replica could drain the 0.1 s burst before the clone lands, and
-    the drive would end without ever counting two replicas."""
+    the drive would end without ever counting two replicas.
+
+    The drive closes the router at its end, and a replica on a closed,
+    empty router ends by itself: the close waits until ``teardown_service``
+    has removed the service, or the replica could end, and be reaped as
+    done, before the teardown."""
     name = "svc-a"
     cl = make_cluster(num_nodes=2, slices_per_node=1, device="cpu",
                       images={name: _engine_image(name),
@@ -495,6 +500,7 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
     orch = cl.orchestrator
     router = reset_router(name)
     router.registry = orch.metrics
+    close = router.close
     scaler = None
     orch.start(tick_interval=0.01)
     try:
@@ -530,6 +536,7 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
                 two_seen.set()
 
         router.pop = held_pop
+        router.close = lambda: None
         res = drive_engine_open_loop(
             orch, scaler, DRIVES["scale"](), duration_s=0.1, slo_s=10.0,
             service=name, prompt_len=PROMPT_LEN, slots_per_replica=SLOTS,
@@ -542,9 +549,9 @@ def test_service_preempts_then_scales_out_and_in(ref, tmp_path):
                    for r, p in want.items())
         _assert_served(router, ref["scale"])
     finally:
-        router.close()
         if scaler is not None:
             teardown_service(orch, scaler)
+        close()
         cl.stop()
     assert orch.deployments[svc].status == "removed"
 

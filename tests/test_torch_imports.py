@@ -43,7 +43,8 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.obs.export", "repro_torch.serve.prefix_cache",
              "repro_torch.serve.disagg", "repro_torch.configs.qwen3_8b",
              "repro_torch.configs.stablelm_3b",
-             "repro_torch.configs.starcoder2_15b"}
+             "repro_torch.configs.starcoder2_15b",
+             "repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -200,3 +201,28 @@ def test_chip_smoke_dense_archs_phase_rehearses_on_the_cpu():
         assert d[k]["parity"]["logit_rel_err"] == [0.0] * 5
         a = d[k]["engine"]["a_single_step"]
         assert a["prefills"] >= 4 and a["decode_steps"] > 0
+
+
+def test_chip_smoke_moe_phase_rehearses_on_the_cpu():
+    """The ``moe`` phase's code path on deepseek-moe-16b-smoke on the CPU:
+    served through the runtime, kernel path against plain path, the engine
+    single-step and fused (same tokens) and on a monitor to the logit
+    checks' iteration (launch counts, logits, routing and the expert
+    path's trace only on the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    ec = dict(chip_smoke.ENGINE, page_size=4, prompt_buckets=(8, 16),
+              prompt_len=16, max_new_tokens=4, pool_pages=64, n_requests=4)
+    chip_smoke.phase_moe(state, device="cpu", cut=dict(
+        arch="deepseek-moe-16b-smoke", serve_prompt=16, logit_at=2,
+        engine=ec))
+    d = state["moe"]["deepseek_moe"]
+    assert d["arch"] == "deepseek-moe-16b-smoke"
+    assert d["experts"] == [8, 2, 2]
+    assert d["parity"]["logit_rel_err"] == [0.0] * 5
+    a = d["engine"]["a_single_step"]
+    assert a["prefills"] >= 4 and a["decode_steps"] > 0

@@ -1,15 +1,21 @@
 """The per-arch smoke cases of ``tests/test_models_smoke.py`` on the PyTorch
-port, for the six archs it has (dense yi-9b, qwen3-8b, stablelm-3b,
-starcoder2-15b; ssm mamba2-1.3b; hybrid recurrentgemma-9b), each at its
-``-smoke`` size in its own dtype (bf16) on the CPU:
+port, for the seven archs it has (dense yi-9b, qwen3-8b, stablelm-3b,
+starcoder2-15b; moe deepseek-moe-16b; ssm mamba2-1.3b; hybrid
+recurrentgemma-9b), each at its ``-smoke`` size in its own dtype (bf16) on
+the CPU:
 
 * one training step's loss is a finite scalar and no gradient leaf has a
   NaN; the gradients have the parameters' tree, shapes and dtypes;
 * prefill then two greedy decode steps give finite (B, vocab) logits;
 * a teacher-forced decode step reproduces the full-sequence forward's
   next-token logits within 8% of the largest logit (the reference's own
-  bound for bf16), which holds every cache implementation end to end.
+  bound for bf16), which holds every cache implementation end to end; as
+  in the reference, an MoE arch runs it at capacity factor 8, where no
+  pair drops (capacity-based routing drops by the tokens of a call).
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -41,8 +47,10 @@ def _bundle_params(arch):
 
 
 def test_the_port_has_six_archs():
-    assert sorted(ARCHS) == ["mamba2-1.3b", "qwen3-8b", "recurrentgemma-9b",
-                             "stablelm-3b", "starcoder2-15b", "yi-9b"]
+    """The six dense, ssm and hybrid archs, and the moe deepseek-moe-16b."""
+    assert sorted(ARCHS) == ["deepseek-moe-16b", "mamba2-1.3b", "qwen3-8b",
+                             "recurrentgemma-9b", "stablelm-3b",
+                             "starcoder2-15b", "yi-9b"]
 
 
 @pytest.mark.parametrize("arch", SMOKE)
@@ -80,6 +88,10 @@ def test_decode_matches_fullseq_forward(arch):
     """Teacher-forced decode reproduces the full-sequence next-token
     logits."""
     cfg, bundle, params = _bundle_params(arch)
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        bundle = build_model(cfg)
     B, S = 2, 16
     toks = (torch.arange(B * (S + 1), dtype=torch.int32).reshape(B, S + 1)
             * 37) % cfg.vocab_size

@@ -1,8 +1,10 @@
 """Training in the PyTorch port: the cases of ``tests/test_train.py`` on the
 port (convergence, microbatch equivalence, chunked == fused, data, the
-schedule, 8-bit Adam; MoE is not ported), and parity with the reference
-package on shared f32 weights (``dataclasses.replace(cfg,
-dtype="float32")``, the reference's ``init`` through ``params_from_jax``).
+schedule, 8-bit Adam; not MoE's a2a dispatch, which the port does not
+have: ``tests/test_torch_moe.py`` holds the MoE loss and gradients), and
+parity with the reference package on shared f32 weights
+(``dataclasses.replace(cfg, dtype="float32")``, the reference's ``init``
+through ``params_from_jax``).
 
 Tolerances (observed on the CPU in parentheses):
 * ``lm_loss``: loss within 1e-5 relative (2e-7 to 3e-7); every gradient
