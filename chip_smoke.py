@@ -103,8 +103,9 @@ caught):
    batch tasks, the service preempting one by Algorithm 1, a
    ``LatencySLOPolicy`` autoscaler scaling it to two replicas and back
    under an open-loop burst (``drive_engine_open_loop``, calibrated on
-   the service's own engine just before it), the clone's node failing
-   while it holds leases (replay, resubmit), teardown; every request once, sampled tokens equal one
+   the service's own engine just before it; from the scale-out the
+   backlog waits for the clone), the clone's node failing while it holds
+   leases (replay, resubmit), teardown; every request once, sampled tokens equal one
    engine's, exact launch counts over every engine and batch task,
    scheduler tick and decode-step seconds, threads ended and memory freed;
 19. training at full width (``phase_train``): yi-9b cut to 8 of its 48
@@ -139,7 +140,16 @@ caught):
    takes the kernel path's MoE routing, and the rows its own router
    would have routed otherwise are logged (a near-tie of the top-k flips
    on a bf16 rounding difference); the warm decode step's trace and the
-   device time of its expert path.
+   device time of its expert path;
+22. MLA (``phase_mla``, budget 120 s and 45 GB peak, both gated):
+   deepseek-v3-671b at full width cut to 4 of its 61 layers (3 dense
+   MLA + MLP, one MLA + MoE of 256 routed experts top-8 and 1 shared;
+   15.1 B parameters), the moe phase's steps with absorbed decode on the
+   kernel side and decompressed decode on the plain side: served through
+   the runtime, absorbed against decompressed, the engine on 8 requests
+   over a pool of latent pages single-step and fused, a paged step's and
+   each bucket's prefill's logits, the expert layer's device time; MLA
+   has no kernel, and any launch fails the phase.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -194,7 +204,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
-          "disagg", "cri", "orch", "train", "dense_archs", "moe")
+          "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -214,6 +224,8 @@ PATHS = {
     "starcoder2": ("starcoder2-15b", 512, {"K2": 40}, {"K1": 40}),
     # the moe phase: MHA 16/16 heads of 128 in every layer
     "deepseek_moe": ("deepseek-moe-16b", 512, {"K2": 28}, {"K1": 28}),
+    # the mla phase (4 of 61 layers): MLA has no kernel, none may launch
+    "deepseek_v3": ("deepseek-v3-671b", 512, {}, {}),
 }
 
 
@@ -1028,6 +1040,24 @@ def _counts():
             "K1p_b1": decode_attention_paged.launches_b1}
 
 
+def _attn_layers(cfg):
+    """Layers whose mixer is GQA attention, each one K2 launch a prefill
+    and one K1 (paged) launch a decode step; MLA's layers launch neither
+    (K2 takes hd_v == hd only, and MLA decode is plain tensor code, as in
+    the reference)."""
+    from repro_torch.models.transformer import plan_segments
+
+    return sum(s.count for s in plan_segments(cfg) for b in s.blocks
+               if b.mixer == "attn")
+
+
+def _plain_kw(cfg):
+    """The plain path's build options besides its plain impls: MLA has no
+    kernel, so its plain path decodes decompressed (the reference's
+    baseline) against the kernel path's absorbed form."""
+    return {"mla_absorb": False} if cfg.mla.enabled else {}
+
+
 def _serve(state, key, device="cuda", arch=None, prompt_len=None):
     """``PATHS[key]`` served to DONE through the runtime, with its exact
     launch counts on the card; ``arch`` and ``prompt_len`` override the
@@ -1126,7 +1156,7 @@ def _logit_parity(cfg, S, alt=None, device="cuda", pin=None):
 
     bundles = {"kernel": build_model(cfg),
                "plain": build_model(cfg, prefill_impl="naive",
-                                    decode_impl="naive")}
+                                    decode_impl="naive", **_plain_kw(cfg))}
     if alt is not None:
         bundles["alt"] = alt
     if pin is not None:
@@ -1531,8 +1561,9 @@ def _reference_tokens(state, arch, device):
 def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device,
                       ec=ENGINE):
     """Every request completed with its token count; the kernels the path
-    launched, exactly: paged K1 once a layer per decode step run, K2 once a
-    layer per prefill run (recomputations included), nothing else."""
+    launched, exactly: paged K1 once an attention layer per decode step
+    run, K2 once an attention layer per prefill run (recomputations
+    included), nothing else (an MLA model: nothing at all)."""
     want = {r.rid: min(r.max_new_tokens, ec["max_new_tokens"])
             for r in engine_requests(cfg.vocab_size, ec["n_requests"])}
     got = {rid: len(t) for rid, t in tokens.items()}
@@ -1545,7 +1576,7 @@ def _check_engine_run(tag, cfg, eng, tokens, fuse, launches, device,
     pe = eng.program_execs
     steps = pe.get("decode_step", 0) + fuse * pe.get("decode_multi", 0)
     prefills = sum(n for p, n in pe.items() if p.startswith("prefill_admit"))
-    L = cfg.num_layers
+    L = _attn_layers(cfg)
     expected = {"K1": 0, "K1p": L * steps, "K2": L * prefills, "K3": 0,
                 "K4": 0}
     if device == "cuda" and launches != expected:
@@ -1663,13 +1694,15 @@ def _engine_served(arch, device, fuse, async_depth, tag, ec=ENGINE):
 
 def _paged_logit_check(eng, mon, cfg, capture=None):
     """One decode step of every lane on the engine's own pool, on the
-    paged kernel path and on ``impl="naive"`` (gather + sdpa_naive), on
-    copies of the pool; max|logit diff| / max|logit| over the active
-    lanes.  Then the kernel path's step again, warm: timed, and traced
-    (device time, busy share, launches).  These launches are comparisons
-    and measurements: the counts are restored.  ``capture(tag)``, a
-    context manager, wraps each path's compared step (tags "kernel",
-    "naive")."""
+    paged kernel path and on ``impl="naive"`` (gather + sdpa_naive; MLA:
+    gather + decompressed decode against the absorbed form), on copies of
+    the pool; max|logit diff| / max|logit| over the active lanes.  The
+    kernel path's compared step must launch paged K1 once an attention
+    layer and nothing else.  Then that step again, warm: timed, and
+    traced (device time, busy share, launches).  These launches are
+    comparisons and measurements: the counts are restored.
+    ``capture(tag)``, a context manager, wraps each path's compared step
+    (tags "kernel", "naive")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1686,14 +1719,17 @@ def _paged_logit_check(eng, mon, cfg, capture=None):
     out = {}
     with torch.no_grad():
         for impl in ("kernel", "naive"):
-            b = build_model(cfg, cache_margin=0, decode_impl=impl)
+            b = build_model(cfg, cache_margin=0, decode_impl=impl,
+                            **(_plain_kw(cfg) if impl == "naive" else {}))
             pool = tree_map(torch.clone, buf["kv_pool"])
+            n0 = _counts()
             with capture(impl) if capture else contextlib.nullcontext():
                 logits, _ = b.decode_paged_fn(
                     buf["params"], buf["toks"][:, 0], buf["pos"], pool,
                     buf["block_table"])
             out[impl] = logits.float()[active]
             if impl == "kernel":
+                launched = {k: n - n0[k] for k, n in _counts().items()}
                 def step():
                     b.decode_paged_fn(buf["params"], buf["toks"][:, 0],
                                       buf["pos"], pool, buf["block_table"])
@@ -1707,6 +1743,10 @@ def _paged_logit_check(eng, mon, cfg, capture=None):
         w.launches = saved[k]
     decode_attention_paged.launches_by_shape.clear()
     decode_attention_paged.launches_by_shape.update(saved_shape)
+    want = {**{k: 0 for k in launched}, "K1p": _attn_layers(cfg)}
+    if launched != want:
+        raise AssertionError(f"{cfg.name}: a paged decode step launched "
+                             f"{launched}, expected {want}")
     ref = out["naive"]
     rel = ((out["kernel"] - ref).abs().max() / ref.abs().max()).item()
     agree = (out["kernel"].argmax(-1) == ref.argmax(-1)).float().mean()
@@ -1749,7 +1789,7 @@ def _prefill_logit_check(eng, mon, cfg, capture=None):
                     logits[impl] = b.prefill_fn(
                         params, {"tokens": prompt})[0].float()
                 n = flash_attention.launches - n0
-                if n != (cfg.num_layers if impl == "kernel" else 0):
+                if n != (_attn_layers(cfg) if impl == "kernel" else 0):
                     raise AssertionError(f"prefill {P} ({impl}): {n} K2 "
                                          "launches")
             ref = logits["naive"]
@@ -3043,9 +3083,11 @@ def phase_orch(state, arch=ENGINE["arch"], device="cuda",
     (Algorithm 1), which resumes or migrates when a slice frees and must
     finish with an uninterrupted task's tokens.  Once the batch tasks are
     done, an open-loop burst (``drive_engine_open_loop``) makes the
-    ``LatencySLOPolicy`` autoscaler replicate ``svc``; while the clone
-    holds leases its node fails (``handle_node_failure``: crash, lease
-    replay, resubmit); after the drive the autoscaler scales back in,
+    ``LatencySLOPolicy`` autoscaler replicate ``svc`` (from its decision
+    the first replica pops nothing, so the backlog waits for the clone);
+    while the clone holds leases its node fails (``handle_node_failure``:
+    crash, lease replay, resubmit, and the first replica pops again);
+    after the drive the autoscaler scales back in,
     then ``teardown_service`` and ``cluster.stop``.  Gates: every request
     once, no duplicate or replay mismatch, sampled tokens (every replayed
     one among them) equal one engine's, exact launch counts over every
@@ -3263,6 +3305,27 @@ def _orch(state, arch, device, root, m_arch):
             engine_phase_tbt_s=state["engine"]["a"]["tbt_p50_s"])
 
         scaler = OrchestratorScaler(orch, svc, service="svc")
+        failure, marks, timeline = {}, [], []
+        # the backlog waits for the clone: from the autoscaler's scale-out
+        # until the clone's node has failed under its leases, the first
+        # replica pops nothing, so the requests that queue while the clone
+        # copies the weights go to the clone (else the first replica could
+        # drain them before the clone came up, and the clone would hold no
+        # lease to fail)
+        scaling_out = threading.Event()
+        scale_to, pop = scaler.scale_to, router.pop
+
+        def held_scale_to(n):
+            if n > scaler.current_replicas():
+                scaling_out.set()
+            scale_to(n)
+
+        def held_pop(n, engine_id=None):
+            if scaling_out.is_set() and not failure and engine_id == svc:
+                return []
+            return pop(n, engine_id=engine_id)
+
+        scaler.scale_to, router.pop = held_scale_to, held_pop
         asc = Autoscaler(LatencySLOPolicy(slo_p95_s=cal["slo_s"],
                                           growth=2.0),
                          min_replicas=1, max_replicas=2,
@@ -3275,7 +3338,6 @@ def _orch(state, arch, device, root, m_arch):
                          seed=ORCH["seed"],
                          mean_service_s=1.0 / r,
                          tokens_range=ORCH["tokens_range"])
-        failure, marks, timeline = {}, [], []
 
         def on_tick(now, n_rep, queue, p95):
             marks.append((now, n_rep, {k: _decode_ms(e)
@@ -4071,7 +4133,12 @@ def _arch_run(state, key, arch, device, ec, logit_at, serve_prompt=None,
     cfg = get_arch(arch)
     a = _serve(state, key, device, arch, serve_prompt)
     peak()
+    n0 = _counts()
     b = _parity(state, key, device, arch)
+    if device == "cuda" and not any(PATHS[key][2:]) and _counts() != n0:
+        raise AssertionError(f"{arch}: kernel vs plain path launched "
+                             f"{_counts()} (from {n0}); its path launches "
+                             "no kernel")
     peak()
     a_tok, ca = _engine_served(arch, device, 1, 0, f"{key}-a", ec)
     peak()
@@ -4290,24 +4357,37 @@ def phase_moe(state, device="cuda", cut=None):
     The phase holds under ``max_phase_s`` and ``max_peak_gb``.  ``cut``
     overrides ``MOE`` (``arch`` and ``serve_prompt`` replace the path's: a
     rehearsal on the CPU at smoke size)."""
+    mc = dict(MOE, **(cut or {}))
+    _routed_phase(state, "moe", mc, mc["arch"] or PATHS[mc["key"]][0],
+                  device, time.perf_counter())
+
+
+def _routed_phase(state, phase, mc, arch, device, t_phase):
+    """The moe and mla phases' body on ``arch``: ``_arch_run`` with the
+    plain path on the kernel path's routing, the routing diffs, the expert
+    path's device time and share of the warm decode step, the log, the
+    launches, and on the card the logit, peak and time gates."""
     import torch
 
     from repro_torch.configs import get_arch
 
-    mc = dict(MOE, **(cut or {}))
-    ec, key, t_phase = mc["engine"], mc["key"], time.perf_counter()
-    arch = mc["arch"] or PATHS[key][0]
+    ec, key = mc["engine"], mc["key"]
     cfg = get_arch(arch)
     if device == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
                              torch.get_float32_matmul_precision()
                              != "highest"):
-        raise AssertionError("moe: TF32 is enabled")
+        raise AssertionError(f"{phase}: TF32 is enabled")
     routing = {}
     rec, launches = _arch_run(state, key, arch, device, ec, mc["logit_at"],
                               mc["serve_prompt"], _routing_pin(routing))
     rec.update(experts=[cfg.moe.num_experts, cfg.moe.top_k,
                         cfg.moe.num_shared_experts],
                params=cfg.param_count())
+    if cfg.mla.enabled:
+        m = cfg.mla
+        rec.update(mla=[m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+                        m.qk_rope_head_dim, m.v_head_dim],
+                   layers_of=get_arch(PATHS[key][0]).num_layers)
     check = rec["logit_check"]
     if check is not None:
         rec["decode_routing"] = _routing_diff(cfg, routing, "kernel",
@@ -4321,19 +4401,59 @@ def phase_moe(state, device="cuda", cut=None):
         rec["peak_gb"] = max(rec["peak_gb"],
                              torch.cuda.max_memory_allocated() / 1e9)
     rec["phase_s"] = time.perf_counter() - t_phase
-    log(phase="moe", card=state.get("card"), **rec)
-    state.setdefault("launches", {})["moe"] = {
+    log(phase=phase, card=state.get("card"), **rec)
+    state.setdefault("launches", {})[phase] = {
         k: launches.get(k, 0) for k in _wrappers()}
-    state["moe"] = {key: rec, "phase_s": rec["phase_s"]}
+    state[phase] = {key: rec, "phase_s": rec["phase_s"]}
     if device != "cuda":
         return
     _logit_gate(rec, ec)
     if rec["peak_gb"] > mc["max_peak_gb"]:
-        raise AssertionError(f"moe: peak {rec['peak_gb']:.2f} GB, over "
+        raise AssertionError(f"{phase}: peak {rec['peak_gb']:.2f} GB, over "
                              f"{mc['max_peak_gb']} GB")
     if rec["phase_s"] > mc["max_phase_s"]:
-        raise AssertionError(f"moe: the phase took {rec['phase_s']:.1f} s, "
-                             f"over {mc['max_phase_s']} s")
+        raise AssertionError(f"{phase}: the phase took "
+                             f"{rec['phase_s']:.1f} s, over "
+                             f"{mc['max_phase_s']} s")
+
+
+# ---------------------------------------------------------------------------
+# 22. MLA
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b at full width cut to ``layers`` of its 61: the three
+# dense MLA + MLP layers (d_ff 18432) and one MLA + MoE layer (256 routed
+# experts of 2048, top-8, 1 shared), 15.11 B parameters, 30.22 GB in bf16
+# (5 layers would take 53.2 GB, over the peak gate).  The moe phase's
+# steps, the engine on 8 requests.
+MLA = dict(key="deepseek_v3", arch=None, layers=4, serve_prompt=None,
+           engine=dict(ENGINE, n_requests=8), logit_at=6, max_phase_s=120,
+           max_peak_gb=45)
+
+
+def phase_mla(state, device="cuda", cut=None):
+    """deepseek-v3-671b at full width (d_model 7168, 128 heads; MLA with
+    q_lora 1536, kv_lora 512, q/k head dim 128 + 64, v 128) cut to 4 of
+    its 61 layers (``_depth_cut``): (a) served through the runtime
+    (``ServeTask``: blockwise prefill, absorbed decode) with exact launch
+    counts, none (``PATHS``), (b) absorbed decode against decompressed
+    decode on the served prefill's decode steps, within LOGIT_REL_TOL,
+    (c) the engine path of ``MLA`` over a pool of latent pages
+    (single-step and fused transcripts identical; no launch), (d) a paged
+    decode step's logits (absorbed) against the plain gather +
+    decompressed decode, and each bucket's blockwise prefill against the
+    naive one, within LOGIT_REL_TOL.  In (b) and (d) the decompressed side
+    takes the absorbed side's MoE routing (``_routing_pin``; the log
+    counts the rows its own router would route otherwise).  Then the warm
+    decode step's trace and the expert layer's device time and share
+    (``_expert_path``).  Any kernel launch fails the phase.  It holds
+    under ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides ``MLA``
+    (``arch`` and ``serve_prompt`` replace the path's: a rehearsal on the
+    CPU at smoke size)."""
+    mc = dict(MLA, **(cut or {}))
+    t_phase = time.perf_counter()
+    with _depth_cut(mc["arch"] or PATHS[mc["key"]][0], mc["layers"]) as arch:
+        _routed_phase(state, "mla", mc, arch, device, t_phase)
 
 
 # ---------------------------------------------------------------------------

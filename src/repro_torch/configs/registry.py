@@ -1,14 +1,15 @@
 """Architecture registry: ``get_arch("<id>")`` and ``get_arch("<id>-smoke")``.
 
 Holds the archs the port serves so far: the dense yi-9b, qwen3-8b,
-stablelm-3b and starcoder2-15b, the moe deepseek-moe-16b, the ssm
-mamba2-1.3b and the hybrid recurrentgemma-9b; the others join with their
-families."""
+stablelm-3b and starcoder2-15b, the moe deepseek-moe-16b and
+deepseek-v3-671b (MLA), the ssm mamba2-1.3b and the hybrid
+recurrentgemma-9b; the others join with their families."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek_moe_16b
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3_671b
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2_1_3b
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
 from repro_torch.configs.recurrentgemma_9b import \
@@ -19,7 +20,8 @@ from repro_torch.configs.yi_9b import CONFIG as _yi_9b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (_yi_9b, _qwen3_8b, _stablelm_3b, _starcoder2_15b,
-                        _deepseek_moe_16b, _mamba2_1_3b, _recurrentgemma_9b)}
+                        _deepseek_moe_16b, _deepseek_v3_671b, _mamba2_1_3b,
+                        _recurrentgemma_9b)}
 
 
 def get_arch(name: str) -> ModelConfig:

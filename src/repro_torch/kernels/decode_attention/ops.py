@@ -89,11 +89,14 @@ def paged_plan(B: int, Hkv: int, max_blocks: int, ps: int,
     wider table only adds empty CTAs: a lane decodes to the same bits in a
     replica of 2 lanes or of 14, with 36 pages to a row or 37
     (prefill/decode disaggregation moves lanes between such replicas;
-    ``B``, ``Hkv`` and ``sm_count`` size the split of f32 only).  A CTA
-    stages at most ``BT_STAGE`` table entries.  f32 (``"slots"``):
-    ``split_plan`` over the table's slots."""
+    ``B`` is not read, ``Hkv`` and ``sm_count`` size the split of f32
+    only).  A CTA stages at most ``BT_STAGE`` table entries.  f32
+    (``"slots"``): ``split_plan`` over the table's slots as for one lane,
+    so the split, and a lane's bits, do not depend on the batch either
+    (split by the batch, a lane's f32 output moved by 1e-7 between 8 and
+    14 lanes on the H100: ``tools/batch_invariance.py``)."""
     if dtype != torch.bfloat16:
-        chunk, cluster = split_plan(B, Hkv, max_blocks * ps, sm_count)
+        chunk, cluster = split_plan(1, Hkv, max_blocks * ps, sm_count)
         if (chunk - 1) // ps + 2 > BT_STAGE:
             raise ValueError(f"decode_attention_paged: {chunk} slots per CTA "
                              f"span more than {BT_STAGE} pages of {ps}")

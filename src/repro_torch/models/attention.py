@@ -1,4 +1,5 @@
-"""Attention: the GQA half of the reference's ``models/attention.py``.
+"""Attention: the reference's ``models/attention.py`` on PyTorch, GQA
+(+ qk-norm, sliding window, partial RoPE) and MLA.
 
 Three scaled-dot-product implementations, as in the reference:
 
@@ -6,7 +7,9 @@ Three scaled-dot-product implementations, as in the reference:
 * ``blockwise``  online softmax over KV chunks (flash expressed in PyTorch);
 * ``kernel``     the hand-written CUDA kernel K2
                  (``repro_torch.kernels.flash_attention``); on a CPU tensor
-                 its wrapper runs the plain version instead.
+                 its wrapper runs the plain version instead.  K2 takes
+                 ``hd_v == hd`` only, as the reference's Pallas kernel
+                 does: ``sdpa`` refuses other shapes on this route.
 
 Decode writes the new k/v into the ring cache *in place* (``index_copy_``
 at slot ``pos % cap``) where the reference built a new array with
@@ -19,6 +22,17 @@ plain version, which autograd differentiates.
 ``gqa_decode_paged`` is the serving engine's decode over the paged pool
 (``serve/kvcache.py``): the whole lane batch at once, each lane at its own
 position, where the reference vmaps a gather + dense decode per lane.
+
+MLA (DeepSeek-V3) keeps a compressed cache: ``ckv`` (kv_lora) and
+``k_pe`` (rope dims) a token.  Its q/k head dim (nope + rope) differs
+from its v head dim, so K2 cannot take it: its prefill runs the plain
+``blockwise`` path, the reference's default, and its decode is plain
+tensor code, as the reference's is (no Pallas kernel).  Decode has the
+reference's two forms: ``absorb=True`` folds the decompression matrices
+into the query and output projections and attends in latent space (the
+default); ``absorb=False`` decompresses the cache every step (the
+algebraic definition, the baseline).  ``mla_decode_paged`` is the
+engine's decode over a pool of latent pages.
 """
 
 from __future__ import annotations
@@ -116,6 +130,11 @@ def sdpa(q, k, v, *, impl="naive", **kw):
         return sdpa_blockwise(q, k, v, **kw)
     kw.pop("chunk", None)
     if impl == "kernel":
+        if v.shape[-1] != q.shape[-1]:
+            raise ValueError(
+                f"sdpa: the kernel route (K2) takes hd_v == hd, got hd "
+                f"{q.shape[-1]} and hd_v {v.shape[-1]} (MLA): run "
+                "'blockwise' or 'naive'")
         from repro_torch.kernels.flash_attention import ops as fa_ops
 
         # the kernel assumes contiguous [0, S) positions, as the reference's
@@ -342,6 +361,243 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, *,
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device, *,
                    window: int | None = None, count: int = 0) -> dict:
     spec = gqa_cache_spec(cfg, batch, max_len, window=window, count=count)
+    out = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+           for k, v in spec.items()}
+    out["kv_pos"].fill_(_INVALID_POS)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, device, gen, count: int = 0) -> dict:
+    """The reference's keys, shapes and scales; ``count`` stacks that many
+    along a new axis 0."""
+    m = cfg.mla
+    dt = cdtype(cfg)
+    D, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = D ** -0.5
+    lead = (count,) if count else ()
+    return {
+        "wq_a": normal((D, m.q_lora_rank), s, dt, device, gen, count),
+        "q_norm": torch.ones(lead + (m.q_lora_rank,), dtype=dt,
+                             device=device),
+        "wq_b": normal((m.q_lora_rank, H, qk), m.q_lora_rank ** -0.5, dt,
+                       device, gen, count),
+        "wkv_a": normal((D, m.kv_lora_rank + m.qk_rope_head_dim), s, dt,
+                        device, gen, count),
+        "kv_norm": torch.ones(lead + (m.kv_lora_rank,), dtype=dt,
+                              device=device),
+        "wk_b": normal((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                       m.kv_lora_rank ** -0.5, dt, device, gen, count),
+        "wv_b": normal((m.kv_lora_rank, H, m.v_head_dim),
+                       m.kv_lora_rank ** -0.5, dt, device, gen, count),
+        "wo": normal((H, m.v_head_dim, D), (H * m.v_head_dim) ** -0.5, dt,
+                     device, gen, count),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
+           positions: torch.Tensor):
+    """(q_nope, q_pe), each (B, S, H, *); q_pe rotated."""
+    m = cfg.mla
+    cq = rmsnorm_1d(x @ p["wq_a"], p["q_norm"])
+    q = _head_proj(cq, p["wq_b"])
+    q_pe = rope_fwd(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_pe
+
+
+def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor):
+    """(ckv (B, S, kv_lora), k_pe (B, S, rope)): what the cache keeps, the
+    rope part rotated as one shared head."""
+    m = cfg.mla
+    ckv_full = x @ p["wkv_a"]
+    ckv = rmsnorm_1d(ckv_full[..., :m.kv_lora_rank], p["kv_norm"])
+    k_pe = rope_fwd(ckv_full[..., m.kv_lora_rank:][:, :, None, :],
+                    positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_pe
+
+
+def _mla_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, impl: str, chunk: int):
+    """Full-sequence MLA in the decompressed form: (out, ckv, k_pe)."""
+    B, S, _ = x.shape
+    q_nope, q_pe = _mla_q(cfg, p, x, positions)
+    ckv, k_pe = _mla_latent(cfg, p, x, positions)
+    k_nope = _head_proj(ckv, p["wk_b"])
+    v = _head_proj(ckv, p["wv_b"])
+    k_pe_h = k_pe[:, :, None, :].expand(B, S, q_pe.shape[2], q_pe.shape[3])
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe_h], dim=-1)
+    # sdpa scales by q.shape[-1] ** -0.5 == (qk_nope + qk_rope) ** -0.5
+    out = sdpa(q, k, v, impl=impl, causal=True, window=0, q_pos=positions,
+               kv_pos=positions, chunk=chunk)
+    return _out_proj(out, p["wo"]), ckv, k_pe
+
+
+def mla_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions=None,
+            impl: str = "naive", chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence MLA (training and prefill math, decompressed form).
+    x: (B, S, D), positions ``0..S-1`` unless given.  ``impl`` is a plain
+    version ("naive" or "blockwise"; training differentiates "naive")."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_full(cfg, p, x, positions, impl, chunk)[0]
+
+
+def mla_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                impl: str = "blockwise", chunk: int = 1024,
+                margin: int = 0):
+    """Prefill: returns (out, cache); the cache is a ring of ``S + margin``
+    slots holding ``ckv``, ``k_pe`` and each slot's position ``kv_pos``."""
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    out, ckv, k_pe = _mla_full(cfg, p, x, positions, impl, chunk)
+    cache = _ring_cache_from_prefill({"ckv": ckv, "k_pe": k_pe}, S,
+                                     S + margin)
+    return out, cache
+
+
+def _mla_attend(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, k_pe, mask,
+                absorb: bool) -> torch.Tensor:
+    """One query per lane over latent caches.  q_nope/q_pe: (B, 1, H, *);
+    ckv (B, S, kv_lora); k_pe (B, S, rope); mask: additive f32 bias
+    broadcast to (B, H, S).  Scores in f32, scaled by
+    ``(qk_nope + qk_rope) ** -0.5``; probabilities in the working dtype.
+    Returns (B, 1, D)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if absorb:
+        # score = (q_nope Wk_b^T) . ckv + q_pe . k_pe: never decompress
+        q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])
+        s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+             + torch.einsum("bqhk,bsk->bhqs", q_pe, k_pe)).float()
+        s = s[:, :, 0, :] * scale + mask
+        probs = torch.softmax(s, dim=-1).to(q_nope.dtype)     # (B, H, S)
+        o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv)
+        out = torch.einsum("bhr,rhk->bhk", o_lat, p["wv_b"])[:, None]
+    else:
+        k_nope = _head_proj(ckv, p["wk_b"])
+        v = _head_proj(ckv, p["wv_b"])
+        s = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+             + torch.einsum("bqhk,bsk->bhqs", q_pe, k_pe)).float()
+        s = s[:, :, 0, :] * scale + mask
+        probs = torch.softmax(s, dim=-1).to(q_nope.dtype)
+        out = torch.einsum("bhs,bshk->bhk", probs, v)[:, None]
+    return _out_proj(out, p["wo"])
+
+
+def _keep_bias(kv_pos: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Additive f32 bias of slots at positions <= ``pos`` (0) and the rest
+    (NEG_INF)."""
+    return torch.where(kv_pos <= pos, 0.0, NEG_INF).to(torch.float32)
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               pos: torch.Tensor, cache: dict, *, absorb: bool = True):
+    """One-token MLA decode over the compressed cache.  x: (B, 1, D); pos:
+    0-d int32 tensor; cache ``ckv`` (B, cap, kv_lora), ``k_pe`` (B, cap,
+    rope), ``kv_pos`` (cap,).  Writes the new latent at ring slot
+    ``pos % cap`` in place and attends over slots at positions <= pos:
+    in latent space (``absorb=True``) or decompressed.  Per-lane rings
+    (the engine's reserved and draft lanes): ``kv_pos`` (B, cap) and pos
+    (B,), lane b writing slot ``pos[b] % cap`` of its row."""
+    ckv, k_pe, kv_pos = cache["ckv"], cache["k_pe"], cache["kv_pos"]
+    cap = ckv.shape[1]
+    if kv_pos.dim() == 2:
+        B = x.shape[0]
+        positions = pos.reshape(B).to(torch.int32)
+        q_nope, q_pe = _mla_q(cfg, p, x, positions.reshape(B, 1))
+        ckv_new, k_pe_new = _mla_latent(cfg, p, x, positions.reshape(B, 1))
+        lanes = torch.arange(B, device=x.device)
+        slot = positions.long() % cap
+        ckv[lanes, slot] = ckv_new[:, 0]
+        k_pe[lanes, slot] = k_pe_new[:, 0]
+        kv_pos[lanes, slot] = positions
+        mask = _keep_bias(kv_pos, positions[:, None])[:, None, :]
+    else:
+        positions = pos.reshape(1).to(torch.int32)
+        q_nope, q_pe = _mla_q(cfg, p, x, positions)
+        ckv_new, k_pe_new = _mla_latent(cfg, p, x, positions)
+        slot = positions.long() % cap
+        ckv.index_copy_(1, slot, ckv_new)
+        k_pe.index_copy_(1, slot, k_pe_new)
+        kv_pos.index_copy_(0, slot, positions)
+        mask = _keep_bias(kv_pos, positions)[None, None, :]
+    out = _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, mask, absorb)
+    return out, cache
+
+
+def mla_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     pos: torch.Tensor, pool: dict,
+                     block_table: torch.Tensor, *,
+                     write_ok: torch.Tensor | None = None,
+                     absorb: bool = True):
+    """One-token MLA decode of every lane of the engine's batch over the
+    paged latent pool: ``gqa_decode_paged``'s contract.  x: (B, 1, D);
+    pos: (B,) int32; pool: one layer's views ``ckv`` (NP + 1, ps,
+    kv_lora), ``k_pe`` (NP + 1, ps, rope) and ``kv_pos`` (NP + 1, ps),
+    page NP the sink; block_table: (B, max_blocks) int32.
+
+    Lane b writes its new latent and position in place at
+    ``pool[bt[b, lp], pos[b] % ps]``, ``lp = (pos[b] % cap) // ps``; the
+    write goes to the sink instead for an inactive lane (``bt[b, 0] <
+    0``), an unmapped page or ``write_ok[b]`` False.  Then every lane
+    attends over its own pages, gathered (unmapped pages read INVALID
+    positions), in latent space or decompressed (``absorb``), as the
+    reference engine's per-lane ``gather_lane_cache`` + ``mla_decode``
+    does.  An inactive lane's output is finite and unused."""
+    B = x.shape[0]
+    ckv_pool, k_pe_pool, kv_pos = pool["ckv"], pool["k_pe"], pool["kv_pos"]
+    sink, ps = ckv_pool.shape[0] - 1, ckv_pool.shape[1]
+    pos = pos.to(torch.int32)
+    q_nope, q_pe = _mla_q(cfg, p, x, pos.reshape(B, 1))
+    ckv_new, k_pe_new = _mla_latent(cfg, p, x, pos.reshape(B, 1))
+    max_blocks = block_table.shape[1]
+    lp = ((pos % (max_blocks * ps)) // ps).long()
+    phys = block_table.gather(1, lp[:, None])[:, 0]
+    ok = (block_table[:, 0] >= 0) & (phys >= 0)
+    if write_ok is not None:
+        ok &= write_ok
+    phys = torch.where(ok, phys, sink).long()
+    off = (pos % ps).long()
+    ckv_pool[phys, off] = ckv_new[:, 0]
+    k_pe_pool[phys, off] = k_pe_new[:, 0]
+    kv_pos[phys, off] = pos
+    bt = block_table.long()
+    idx = bt.clamp(0, sink)
+    cap = max_blocks * ps
+    ckv = ckv_pool[idx].reshape(B, cap, ckv_pool.shape[-1])
+    k_pe = k_pe_pool[idx].reshape(B, cap, k_pe_pool.shape[-1])
+    lane_pos = torch.where((bt >= 0)[..., None], kv_pos[idx],
+                           _INVALID_POS).reshape(B, cap)
+    mask = _keep_bias(lane_pos, pos[:, None])[:, None, :]
+    return _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, mask, absorb)
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int, *,
+                   count: int = 0) -> dict:
+    """Cache shapes as meta tensors; ``count > 0`` adds the stacked layer
+    axis."""
+    m = cfg.mla
+    lead = (count,) if count else ()
+    meta = torch.device("meta")
+    return {
+        "ckv": torch.empty(lead + (batch, max_len, m.kv_lora_rank),
+                           dtype=cdtype(cfg), device=meta),
+        "k_pe": torch.empty(lead + (batch, max_len, m.qk_rope_head_dim),
+                            dtype=cdtype(cfg), device=meta),
+        "kv_pos": torch.empty(lead + (max_len,), dtype=torch.int32,
+                              device=meta),
+    }
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, device, *,
+                   count: int = 0) -> dict:
+    spec = mla_cache_spec(cfg, batch, max_len, count=count)
     out = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
            for k, v in spec.items()}
     out["kv_pos"].fill_(_INVALID_POS)

@@ -11,6 +11,7 @@ drawn differ (``torch.Generator`` is not JAX's threefry).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,23 +27,41 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+# the most elements one float32 draw of ``normal`` holds (4 GiB): a larger
+# tensor (deepseek-v3's expert weights, 256 x 7168 x 2048) is drawn in
+# blocks along axis 0; every smaller one, in one draw
+_DRAW_MAX = 1 << 30
+
+
+def _fill_normal(out: torch.Tensor, scale: float,
+                 gen: Optional[torch.Generator]) -> None:
+    """``out`` <- ``N(0,1) * scale`` drawn in float32 and cast on the copy,
+    in one draw, or in blocks along axis 0 past ``_DRAW_MAX`` elements."""
+    row = out[0].numel() if out.dim() > 1 else 0
+    if out.numel() > _DRAW_MAX and 0 < row <= _DRAW_MAX:
+        step = _DRAW_MAX // row
+        for i in range(0, out.shape[0], step):
+            _fill_normal(out[i:i + step], scale, gen)
+        return
+    x = torch.randn(out.shape, generator=gen, device=out.device,
+                    dtype=torch.float32)
+    out.copy_(x.mul_(scale))
+
+
 def normal(shape, scale: float, dtype: torch.dtype, device: torch.device,
            gen: Optional[torch.Generator], count: int = 0) -> torch.Tensor:
     """``N(0,1) * scale`` drawn in float32 and cast, like the reference.
 
     ``count > 0`` stacks ``count`` independent draws along a new axis 0,
-    filled one slice at a time so the float32 temporary stays one slice."""
+    each drawn into its slice, so the float32 temporary stays one slice
+    (or one block of ``_fill_normal``'s)."""
     shape = tuple(shape)
-    if count:
-        out = torch.empty((count,) + shape, dtype=dtype, device=device)
-        if device.type != "meta":
-            for i in range(count):
-                out[i].copy_(normal(shape, scale, dtype, device, gen))
-        return out
-    if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    out = torch.empty(((count,) if count else ()) + shape, dtype=dtype,
+                      device=device)
+    if device.type != "meta":
+        for t in (out.unbind(0) if count else (out,)):
+            _fill_normal(t, scale, gen)
+    return out
 
 
 # ---------------------------------------------------------------------------

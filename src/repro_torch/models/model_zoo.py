@@ -1,5 +1,5 @@
-"""Model zoo: one ``build_model`` entry point (dense, moe, ssm and hybrid
-families so far).
+"""Model zoo: one ``build_model`` entry point (dense, moe with GQA or MLA,
+ssm and hybrid families so far).
 
 ``ModelBundle`` packages the functional API the rest of the port uses:
 
@@ -12,7 +12,11 @@ families so far).
     cache_specs(batch, max_len)              -> caches as meta tensors
 
 ``decode_paged_fn`` is the serving engine's decode: every lane at its own
-position over the paged KV pool (attention plans; K1's paged entry).
+position over the paged KV pool (attention plans: K1's paged entry; MLA
+plans: plain tensor code over latent pages).
+
+``mla_absorb`` picks MLA's decode form, as the reference's does: True (the
+default) attends in latent space, False decompresses the cache.
 
 ``loss_fn`` is training's forward (``lm_loss``): the plain versions only
 (naive attention, as in the reference; the SSD and RG-LRU scans in plain
@@ -49,17 +53,19 @@ class ModelBundle:
 
 def build_model(cfg: ModelConfig, *, prefill_impl: str = "kernel",
                 decode_impl: str = "kernel", prefill_chunk: int = 1024,
-                cache_margin: int = 128,
-                remat: str = "none") -> ModelBundle:
+                cache_margin: int = 128, remat: str = "none",
+                mla_absorb: bool = True) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=partial(_tf.init_lm, cfg),
         prefill_fn=partial(_tf.lm_prefill, cfg, impl=prefill_impl,
                            prefill_chunk=prefill_chunk,
                            cache_margin=cache_margin),
-        decode_fn=partial(_tf.lm_decode, cfg, impl=decode_impl),
+        decode_fn=partial(_tf.lm_decode, cfg, impl=decode_impl,
+                          mla_absorb=mla_absorb),
         cache_specs=partial(_tf.lm_cache_specs, cfg),
-        decode_paged_fn=partial(_tf.lm_decode_paged, cfg, impl=decode_impl),
+        decode_paged_fn=partial(_tf.lm_decode_paged, cfg, impl=decode_impl,
+                                mla_absorb=mla_absorb),
         loss_fn=partial(_tf.lm_loss, cfg, remat=remat),
         cache_margin=cache_margin,
     )

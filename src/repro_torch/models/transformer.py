@@ -10,6 +10,7 @@ parameters and caches stacked along a leading ``count`` axis:
                                                 quarter of hd 80)
     starcoder2-15b:   [40 x ("attn+mlp",)]     (LayerNorm, GELU mlp)
     deepseek-moe-16b: [1 x ("attn+mlp",), 27 x ("attn+moe",)]
+    deepseek-v3:      [3 x ("mla+mlp",), 58 x ("mla+moe",)]
     mamba2:           [48 x ("ssm",)]
     recurrentgemma:   [12 x ("rec+mlp", "rec+mlp", "attn+mlp"),
                        1 x ("rec+mlp", "rec+mlp")]
@@ -22,7 +23,7 @@ forwards under autograd, each repetition optionally rematerialised in the
 backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant),
 and sums the MoE blocks' aux losses into ``lm_loss``'s total.
 ``lm_decode_paged`` is the serving engine's decode over the paged pool
-(attention plans), one step for every lane at its own position.
+(attention and MLA plans), one step for every lane at its own position.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 @dataclass(frozen=True)
 class BlockSpec:
-    mixer: str            # attn | rec | ssm
+    mixer: str            # attn | mla | rec | ssm
     ffn: str = "mlp"      # mlp | moe | none
     window: int = 0       # sliding-window for attn mixers (0 = full)
     d_ff: int = 0         # mlp hidden size
@@ -73,14 +74,13 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
             segs.append(Segment(1, pat[:rem]))
         return segs
     if cfg.moe.enabled:
-        if cfg.mla.enabled:
-            raise NotImplementedError("MLA is not ported yet")
+        mixer = "mla" if cfg.mla.enabled else "attn"
         segs = []
         nd = cfg.moe.n_dense_layers
         if nd:
             segs.append(Segment(nd, (BlockSpec(
-                "attn", "mlp", d_ff=cfg.moe.dense_d_ff),)))
-        segs.append(Segment(L - nd, (BlockSpec("attn", "moe"),)))
+                mixer, "mlp", d_ff=cfg.moe.dense_d_ff),)))
+        segs.append(Segment(L - nd, (BlockSpec(mixer, "moe"),)))
         return segs
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
@@ -113,6 +113,8 @@ def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
     p = {"norm1": init_norm(cfg, cfg.d_model, device, count)}
     if spec.mixer == "attn":
         p["attn"] = attn.init_gqa(cfg, device, gen, count)
+    elif spec.mixer == "mla":
+        p["attn"] = attn.init_mla(cfg, device, gen, count)
     elif spec.mixer == "rec":
         p["rec"] = rglru.init_rec_block(cfg, device, gen, count)
     elif spec.mixer == "ssm":
@@ -134,12 +136,15 @@ def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
 def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
                 *, mode: str, cache, pos, prefill_impl: str = "kernel",
                 decode_impl: str = "kernel", prefill_chunk: int = 1024,
-                cache_margin: int = 0):
+                cache_margin: int = 0, mla_absorb: bool = True):
     """mode: train | prefill | decode. Returns (x, aux, cache): ``aux`` is
     an MoE block's aux loss in training, else None; training has no cache
     (None).  ``prefill_impl`` "kernel" puts every mixer's prefill on
     its CUDA kernel (K2, K3, K4); ``decode_impl`` "kernel" puts attention
-    decode on K1 (the SSM and RG-LRU steps are plain tensor code).
+    decode on K1 (the SSM and RG-LRU steps are plain tensor code).  MLA
+    has no kernel (K2 takes hd_v == hd only): its "kernel" prefill is the
+    reference's default, ``blockwise``, and its decode is plain tensor
+    code in the form ``mla_absorb`` picks.
     Training runs the plain versions only (naive attention, the plain SSD
     and RG-LRU scans): no kernel has a backward."""
     if mode not in ("train", "prefill", "decode"):
@@ -157,6 +162,18 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
             mix, new_cache = attn.gqa_decode(
                 cfg, p["attn"], h, pos, cache, window=spec.window,
                 impl=decode_impl)
+    elif spec.mixer == "mla":
+        if mode == "train":
+            mix = attn.mla_fwd(cfg, p["attn"], h)
+        elif mode == "prefill":
+            mix, new_cache = attn.mla_prefill(
+                cfg, p["attn"], h,
+                impl="blockwise" if prefill_impl == "kernel"
+                else prefill_impl,
+                chunk=prefill_chunk, margin=cache_margin)
+        else:
+            mix, new_cache = attn.mla_decode(cfg, p["attn"], h, pos, cache,
+                                             absorb=mla_absorb)
     elif spec.mixer == "rec":
         if mode == "train":
             mix = rglru.rec_block_fwd(cfg, p["rec"], h)
@@ -191,6 +208,8 @@ def block_cache_spec(cfg: ModelConfig, spec: BlockSpec, batch: int,
     if spec.mixer == "attn":
         return attn.gqa_cache_spec(cfg, batch, max_len, window=spec.window,
                                    count=count)
+    if spec.mixer == "mla":
+        return attn.mla_cache_spec(cfg, batch, max_len, count=count)
     if spec.mixer == "rec":
         return rglru.rec_cache_spec(cfg, batch, count)
     if spec.mixer == "ssm":
@@ -343,10 +362,12 @@ def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
-              caches, *, impl: str = "kernel", inplace: bool = False):
+              caches, *, impl: str = "kernel", inplace: bool = False,
+              mla_absorb: bool = True):
     """token: (B,) int; pos: int or 0-d int tensor. Returns (logits,
     caches).  ``inplace=True`` writes the new entries into ``caches``
-    itself (the monitor's donated buffers); otherwise a copy is updated."""
+    itself (the monitor's donated buffers); otherwise a copy is updated.
+    ``mla_absorb`` picks MLA's decode form (latent or decompressed)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     if not inplace:
         caches = tree_map(torch.clone, caches)
@@ -354,7 +375,7 @@ def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
     h, _, caches = lm_backbone(cfg, params, h, mode="decode",
                                caches=caches, pos=pos, prefill_impl="kernel",
                                decode_impl=impl, prefill_chunk=0,
-                               cache_margin=0)
+                               cache_margin=0, mla_absorb=mla_absorb)
     logits = lm_head_fwd(cfg, params["embed"], h)
     return logits[:, 0, :], caches
 
@@ -373,14 +394,16 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
                     pos: torch.Tensor, pool, block_table: torch.Tensor, *,
                     impl: str = "kernel",
                     write_ok: torch.Tensor | None = None,
-                    rows: int = DECODE_ROWS):
+                    rows: int = DECODE_ROWS, mla_absorb: bool = True):
     """One decode step of every lane of the serving engine over the paged
     pool (``serve/kvcache.py`` layout: the cache tree with page axis 0 in
     front of each segment's stacked ``count`` axis).  token: (B,) int;
     pos: (B,) int32, each lane's position; block_table: (B, max_blocks)
-    int32.  Writes each lane's new k/v into its page in place (see
-    ``attention.gqa_decode_paged``) and returns (logits (B, V), pool).
-    Attention-only plans only: other mixers have no pages.  The batch runs
+    int32.  Writes each lane's new k/v (MLA: its latent, in the form
+    ``mla_absorb`` picks) into its page in place (see
+    ``attention.gqa_decode_paged``, ``attention.mla_decode_paged``) and
+    returns (logits (B, V), pool).  Attention and MLA plans only: other
+    mixers have no pages.  The batch runs
     padded with idle rows to a multiple of ``rows`` (``DECODE_ROWS``; the
     prefix cache's one-lane ``prefill_chunk`` passes 1), which attention
     treats as inactive lanes: K1 gives them zeros and their writes go to the
@@ -400,15 +423,20 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
         for i in range(seg.count):
             rep_p = _layer(params["segments"][si], i)
             for b, spec in enumerate(seg.blocks):
-                if spec.mixer != "attn":
-                    raise ValueError(f"mixer {spec.mixer!r} has no paged "
-                                     "decode (its state has no pages)")
                 p = rep_p["blocks"][b]
                 layer_pool = {k: t[:, i] for k, t in pool[si][b].items()}
-                h = h + attn.gqa_decode_paged(
-                    cfg, p["attn"], norm_fwd(cfg, p["norm1"], h), pos,
-                    layer_pool, block_table, write_ok=write_ok,
-                    window=spec.window, impl=impl)
+                hn = norm_fwd(cfg, p["norm1"], h)
+                if spec.mixer == "attn":
+                    h = h + attn.gqa_decode_paged(
+                        cfg, p["attn"], hn, pos, layer_pool, block_table,
+                        write_ok=write_ok, window=spec.window, impl=impl)
+                elif spec.mixer == "mla":
+                    h = h + attn.mla_decode_paged(
+                        cfg, p["attn"], hn, pos, layer_pool, block_table,
+                        write_ok=write_ok, absorb=mla_absorb)
+                else:
+                    raise ValueError(f"mixer {spec.mixer!r} has no paged "
+                                     "decode (its state has no pages)")
                 if spec.ffn == "mlp":
                     h = h + mlp_fwd(cfg, p["mlp"],
                                     norm_fwd(cfg, p["norm2"], h))

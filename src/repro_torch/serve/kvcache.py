@@ -13,15 +13,17 @@
   ``apply_block_table_delta``.
 
 Pool layout.  The reference discovers each cache leaf's token axis by
-diffing two prefill lengths; here it is the port's own attention cache
-layout (``models/attention.py:gqa_cache_spec``), known statically.  A lane
-cache holds, per attention block, ``k``/``v`` of shape
-``(*lead, 1, S, Hkv, hd)`` and ``kv_pos`` of shape ``(*lead, S)``, where
-``lead`` is the stacked layer axis.  Its pool leaf is
-``(NP + 1, *lead, ps, Hkv, hd)`` and ``(NP + 1, *lead, ps)``: the page axis
-first (the contract with the buffer table's page-granular dirtiness),
-then each page's ``ps`` slots contiguous per layer, so one layer's view
-``pool[:, i]`` is what K1's paged entry point reads in place.
+diffing two prefill lengths; here it is the port's own cache layouts
+(``models/attention.py:gqa_cache_spec``, ``mla_cache_spec``), known
+statically by leaf name.  A lane cache holds, per attention block,
+``k``/``v`` of shape ``(*lead, 1, S, Hkv, hd)``, per MLA block the latent
+``ckv`` ``(*lead, 1, S, kv_lora)`` and ``k_pe`` ``(*lead, 1, S, rope)``,
+and ``kv_pos`` of shape ``(*lead, S)``, where ``lead`` is the stacked
+layer axis.  Its pool leaf is ``(NP + 1, *lead, ps, *rest)`` and
+``(NP + 1, *lead, ps)``: the page axis first (the contract with the
+buffer table's page-granular dirtiness), then each page's ``ps`` slots
+contiguous per layer, so one layer's view ``pool[:, i]`` is what K1's
+paged entry point (and MLA's paged decode) reads in place.
 
 Page ``NP``, one past the last real page, is a **sink**: a write that the
 reference drops (an out-of-range id, an unmapped page, an inactive lane)
@@ -58,8 +60,10 @@ from repro_torch.models.attention import _INVALID_POS
 # one exported byte-accounting helper (shared with the buffer state machine)
 cache_bytes = tree_bytes
 
-_KV = ("k", "v")
 _POS = "kv_pos"
+# the pageable leaves by name: the number of axes after the token axis
+# (k/v: Hkv, hd; MLA's ckv: kv_lora, k_pe: rope; kv_pos: none)
+_TRAIL = {"k": 2, "v": 2, "ckv": 1, "k_pe": 1, _POS: 0}
 
 
 def _map_named(fn, tree, *rest):
@@ -76,11 +80,11 @@ def _map_named(fn, tree, *rest):
 
 
 def _check_name(name: str) -> None:
-    if name not in _KV and name != _POS:
+    if name not in _TRAIL:
         raise ValueError(
-            f"cannot page cache leaf {name!r}: only attention k/v/kv_pos "
-            "leaves have a token axis (SSM, RG-LRU and ring caches do not); "
-            "run the engine with paged=False")
+            f"cannot page cache leaf {name!r}: only attention k/v, MLA "
+            "ckv/k_pe and kv_pos leaves have a token axis (SSM, RG-LRU "
+            "and ring caches do not); run the engine with paged=False")
 
 
 def init_caches_from_specs(specs, device):
@@ -248,13 +252,14 @@ def pool_specs_from_lane_cache(lane_cache_abs, num_pages: int,
     def mk(name, leaf):
         _check_name(name)
         shp = tuple(leaf.shape)
+        n = _TRAIL[name]
         if name == _POS:
             lead, S, rest = shp[:-1], shp[-1], ()
         else:
-            if len(shp) < 4 or shp[-4] != 1:
+            if len(shp) < n + 2 or shp[-n - 2] != 1:
                 raise ValueError(f"cannot page {name} leaf {shp}: expected "
-                                 "(*layers, 1, S, Hkv, hd)")
-            lead, S, rest = shp[:-4], shp[-3], shp[-2:]
+                                 f"(*layers, 1, S, <{n} axes>)")
+            lead, S, rest = shp[:-n - 2], shp[-n - 1], shp[-n:]
         if S != prompt_len:
             raise ValueError(
                 f"cannot page cache leaf {name} {shp}: its token axis holds "
@@ -287,7 +292,7 @@ def _ids(x, device) -> torch.Tensor:
 
 def _slot_axis(name: str, leaf: torch.Tensor) -> int:
     """Axis of a pool leaf that holds a page's slots."""
-    return leaf.dim() - (1 if name == _POS else 3)
+    return leaf.dim() - 1 - _TRAIL[name]
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +300,8 @@ def _slot_axis(name: str, leaf: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 def gather_lane_cache(pool, block_row: torch.Tensor, *, page_size: int):
     """One lane's logical cache from the pool through its block-table row
-    ``(max_blocks,)``: k/v ``(*lead, 1, max_blocks * ps, Hkv, hd)``, kv_pos
+    ``(max_blocks,)``: k/v ``(*lead, 1, max_blocks * ps, Hkv, hd)`` (ckv,
+    k_pe ``(*lead, 1, max_blocks * ps, *rest)``), kv_pos
     ``(*lead, max_blocks * ps)``.  Unmapped pages (id < 0) are clamped for
     the gather and their positions forced to INVALID, so attention masks
     them whatever the clamped page holds (``gather_pages``)."""
@@ -319,7 +325,8 @@ def extract_written_page(new_lane_cache, logical_page, *, page_size: int):
         idx = lp * page_size + torch.arange(page_size, device=leaf.device)
         if name == _POS:
             return leaf.index_select(leaf.dim() - 1, idx)
-        return leaf.squeeze(-4).index_select(leaf.dim() - 4, idx)
+        n = _TRAIL[name]
+        return leaf.squeeze(-n - 2).index_select(leaf.dim() - n - 2, idx)
 
     return _map_named(ex, new_lane_cache)
 
@@ -350,10 +357,11 @@ def scatter_prefill(pool, page_ids, pf_cache, *, page_size: int,
                               dtype=torch.int32, device=pf.device)
             ax = pf.dim() - 1
         else:
-            vals = pf.squeeze(-4)                  # (*lead, P, Hkv, hd)
-            fill = torch.zeros(vals.shape[:-3] + (pad,) + vals.shape[-2:],
+            n = _TRAIL[name]
+            vals = pf.squeeze(-n - 2)              # (*lead, P, *rest)
+            ax = vals.dim() - n - 1
+            fill = torch.zeros(vals.shape[:ax] + (pad,) + vals.shape[ax + 1:],
                                dtype=vals.dtype, device=vals.device)
-            ax = vals.dim() - 3
         if pad:
             vals = torch.cat([vals, fill], dim=ax)
         vals = vals.reshape(vals.shape[:ax] + (n_pp, page_size)
@@ -448,12 +456,11 @@ def apply_block_table_delta(block_table: torch.Tensor, delta):
 # ---------------------------------------------------------------------------
 def token_axis(name: str, leaf) -> Optional[int]:
     """Axis of a one-lane prefill cache leaf that holds tokens: k/v
-    ``(*lead, 1, S, Hkv, hd)`` and kv_pos ``(*lead, S)``; other leaves (SSM
-    and RG-LRU states, conv windows) hold none."""
-    if name in _KV:
-        return leaf.dim() - 3
-    if name == _POS:
-        return leaf.dim() - 1
+    ``(*lead, 1, S, Hkv, hd)``, ckv/k_pe ``(*lead, 1, S, *rest)`` and
+    kv_pos ``(*lead, S)``; other leaves (SSM and RG-LRU states, conv
+    windows) hold none."""
+    if name in _TRAIL:
+        return leaf.dim() - 1 - _TRAIL[name]
     return None
 
 

@@ -30,7 +30,11 @@ def _tensor(x) -> torch.Tensor:
 def params_from_jax(np_tree: Any) -> Any:
     """The reference's parameter pytree (numpy leaves) as the port's
     parameters: CPU tensors, each leaf in its own dtype (a bf16 config
-    keeps its float32 leaves, e.g. Mamba2's ``A_log``, in float32)."""
+    keeps its float32 leaves, e.g. Mamba2's ``A_log``, in float32) and
+    its own layout, which the port's parameters share (MLA's ``wq_a``
+    (D, q_lora), ``wq_b`` (q_lora, H, nope + rope), ``wkv_a`` (D, kv_lora
+    + rope), ``wk_b``/``wv_b`` (kv_lora, H, *), ``wo`` (H, v, D) and the
+    two norm scales among them)."""
     return tree_map(_tensor, np_tree)
 
 

@@ -4,8 +4,8 @@
 reference package; ``chip_smoke.py`` and ``train_memory.py`` import
 neither.  Nothing picks the CPU on its own: a CUDA request on a host
 without a card raises, and a missing ``nvcc`` is an error, never a
-fallback.  ``chip_smoke.py``'s ``disagg`` and ``dense_archs`` phases
-rehearse on the CPU at smoke size.
+fallback.  ``chip_smoke.py``'s ``disagg``, ``dense_archs``, ``moe`` and
+``mla`` phases rehearse on the CPU at smoke size.
 """
 
 import ast
@@ -44,7 +44,9 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.serve.disagg", "repro_torch.configs.qwen3_8b",
              "repro_torch.configs.stablelm_3b",
              "repro_torch.configs.starcoder2_15b",
-             "repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe"}
+             "repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
+             "repro_torch.configs.deepseek_v3_671b",
+             "repro_torch.models.attention", "repro_torch.serve.kvcache"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -226,3 +228,31 @@ def test_chip_smoke_moe_phase_rehearses_on_the_cpu():
     assert d["parity"]["logit_rel_err"] == [0.0] * 5
     a = d["engine"]["a_single_step"]
     assert a["prefills"] >= 4 and a["decode_steps"] > 0
+
+
+def test_chip_smoke_mla_phase_rehearses_on_the_cpu():
+    """The ``mla`` phase's code path on deepseek-v3-671b-smoke on the CPU:
+    served through the runtime, absorbed decode against decompressed on
+    the absorbed side's routing (within the card's bound here too), the
+    engine single-step and fused over latent pages (same tokens) and on a
+    monitor to the logit checks' iteration; no kernel launches (the counts
+    and the logit checks are gated only on the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    ec = dict(chip_smoke.ENGINE, page_size=4, prompt_buckets=(8, 16),
+              prompt_len=16, max_new_tokens=4, pool_pages=64, n_requests=4)
+    chip_smoke.phase_mla(state, device="cpu", cut=dict(
+        arch="deepseek-v3-671b-smoke", serve_prompt=16, logit_at=2,
+        engine=ec))
+    d = state["mla"]["deepseek_v3"]
+    assert d["arch"] == "deepseek-v3-671b-smoke" and d["layers_of"] == 61
+    assert d["mla"] == [32, 32, 16, 8, 16]
+    errs = d["parity"]["logit_rel_err"]
+    assert 0 < max(errs) < chip_smoke.LOGIT_REL_TOL
+    a = d["engine"]["a_single_step"]
+    assert a["prefills"] >= 4 and a["decode_steps"] > 0
+    assert not any(state["launches"]["mla"].values())

@@ -1,8 +1,8 @@
 """The per-arch smoke cases of ``tests/test_models_smoke.py`` on the PyTorch
-port, for the seven archs it has (dense yi-9b, qwen3-8b, stablelm-3b,
-starcoder2-15b; moe deepseek-moe-16b; ssm mamba2-1.3b; hybrid
-recurrentgemma-9b), each at its ``-smoke`` size in its own dtype (bf16) on
-the CPU:
+port, for the eight archs it has (dense yi-9b, qwen3-8b, stablelm-3b,
+starcoder2-15b; moe deepseek-moe-16b and deepseek-v3-671b (MLA); ssm
+mamba2-1.3b; hybrid recurrentgemma-9b), each at its ``-smoke`` size in its
+own dtype (bf16) on the CPU:
 
 * one training step's loss is a finite scalar and no gradient leaf has a
   NaN; the gradients have the parameters' tree, shapes and dtypes;
@@ -47,10 +47,11 @@ def _bundle_params(arch):
 
 
 def test_the_port_has_six_archs():
-    """The six dense, ssm and hybrid archs, and the moe deepseek-moe-16b."""
-    assert sorted(ARCHS) == ["deepseek-moe-16b", "mamba2-1.3b", "qwen3-8b",
-                             "recurrentgemma-9b", "stablelm-3b",
-                             "starcoder2-15b", "yi-9b"]
+    """The six dense, ssm and hybrid archs, and the moe deepseek-moe-16b
+    and deepseek-v3-671b (MLA)."""
+    assert sorted(ARCHS) == ["deepseek-moe-16b", "deepseek-v3-671b",
+                             "mamba2-1.3b", "qwen3-8b", "recurrentgemma-9b",
+                             "stablelm-3b", "starcoder2-15b", "yi-9b"]
 
 
 @pytest.mark.parametrize("arch", SMOKE)

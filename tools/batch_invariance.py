@@ -10,10 +10,13 @@ does not depend on the batch.  For yi-9b's decode shapes in bf16 this
 prints, for each batch size, the largest difference of row 0 against the
 8-row batch: the five projections and the head as the model calls them
 (``x @ w`` on (B, 1, K) activations), K1's paged entry (lane 0 at 36 and
-37 pages of 16, the wrapper's plan), and the elementwise and reduction
-steps around them (RMSNorm, softmax over the vocabulary, argmax).  Zero
-everywhere means batch-invariant.  One JSON object per line, the card's
-name and power limit first.
+37 pages of 16, the wrapper's plan) in bf16 and in f32, and the
+elementwise and reduction steps around them (RMSNorm, softmax over the
+vocabulary, argmax).  Zero everywhere means batch-invariant.  The batches
+run to 32: ``lm_decode_paged`` pads a replica of 1-16 lanes to 16 rows
+and one of 17-32 lanes to 32, so row 0's bits at 16 against 32 rows say
+whether a lane decodes alike in both.  One JSON object per line, the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-BATCHES = (1, 2, 8, 14, 16)
+BATCHES = (1, 2, 8, 14, 16, 17, 24, 32)
+ROWS = max(BATCHES)
 
 
 def log(**kw):
@@ -53,7 +57,7 @@ def main() -> int:
 
     def rows(fn, K):
         """max|row 0 at batch B - row 0 at batch 8| for each B."""
-        x = torch.randn((16, 1, K), generator=g, device="cuda").to(bf)
+        x = torch.randn((ROWS, 1, K), generator=g, device="cuda").to(bf)
         ref = fn(x[:8])[0].float()
         return {B: (fn(x[:B])[0].float() - ref).abs().max().item()
                 for B in BATCHES}
@@ -72,18 +76,18 @@ def main() -> int:
                              x.argmax(-1, keepdim=True).float()], -1),
         64000))
 
-    # K1 paged: lane 0 (pos 517, 33 pages) in batches of 1-16 lanes, tables
+    # K1 paged: lane 0 (pos 517, 33 pages) in batches of 1-32 lanes, tables
     # of 36 and 37 pages of 16 over one pool, under the wrapper's plan
-    ps, Hq, Hkv, hd, NP = 16, 32, 4, 128, 600
-    k = torch.randn((NP, ps, Hkv, hd), generator=g, device="cuda").to(bf)
-    v = torch.randn((NP, ps, Hkv, hd), generator=g, device="cuda").to(bf)
-    q = torch.randn((16, 1, Hq, hd), generator=g, device="cuda").to(bf)
+    ps, Hq, Hkv, hd, NP = 16, 32, 4, 128, 1200
+    k = torch.randn((NP, ps, Hkv, hd), generator=g, device="cuda")
+    v = torch.randn((NP, ps, Hkv, hd), generator=g, device="cuda")
+    q = torch.randn((ROWS, 1, Hq, hd), generator=g, device="cuda")
     kvp = torch.arange(NP * ps, device="cuda", dtype=torch.int32).view(
         NP, ps) % (37 * ps)
     perm = torch.randperm(NP, generator=torch.Generator().manual_seed(1))
-    bt = torch.full((16, 37), -1, dtype=torch.int32)
-    pos = torch.full((16,), 517, dtype=torch.int32)
-    for b in range(16):
+    bt = torch.full((ROWS, 37), -1, dtype=torch.int32)
+    pos = torch.full((ROWS,), 517, dtype=torch.int32)
+    for b in range(ROWS):
         n = 517 // ps + 1
         pages = perm[(b * n) % (NP - n):(b * n) % (NP - n) + n]
         bt[b, :n] = pages.to(torch.int32)
@@ -91,18 +95,22 @@ def main() -> int:
                                           dtype=torch.int32)
                              .view(n, ps))
     bt, pos = bt.cuda(), pos.cuda()
-    ref = decode_attention_paged(q[:8], k, v, kvp, bt[:8, :36].contiguous(),
-                                 pos[:8])[0].float()
-    out = {}
-    for B in BATCHES:
-        for mb in (36, 37):
-            o = decode_attention_paged(q[:B], k, v, kvp,
-                                       bt[:B, :mb].contiguous(), pos[:B])
-            out[f"B{B}_mb{mb}"] = {
-                "plan": list(paged_plan(B, Hkv, mb, ps, bf,
-                                        sm_count(q.device))),
-                "diff": (o[0].float() - ref).abs().max().item()}
-    log(op="K1_paged_lane0", row0_diff=out)
+    for dt in (bf, torch.float32):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        ref = decode_attention_paged(qd[:8], kd, vd, kvp,
+                                     bt[:8, :36].contiguous(),
+                                     pos[:8])[0].float()
+        out = {}
+        for B in BATCHES:
+            for mb in (36, 37):
+                o = decode_attention_paged(qd[:B], kd, vd, kvp,
+                                           bt[:B, :mb].contiguous(), pos[:B])
+                out[f"B{B}_mb{mb}"] = {
+                    "plan": list(paged_plan(B, Hkv, mb, ps, dt,
+                                            sm_count(q.device))),
+                    "diff": (o[0].float() - ref).abs().max().item()}
+        log(op="K1_paged_lane0", dtype=str(dt).removeprefix("torch."),
+            row0_diff=out)
     return 0
 
 
