@@ -29,7 +29,12 @@ caught):
    timed), each case
    logging the route ``paged_plan`` gave it;
    K2: Sq 1/127/129/200, windows ending on a tile
-   boundary, hd 16 and 64; K3: chunk 100, the smoke shape), and the
+   boundary, hd 16 and 64; K3: chunk 100, the smoke shape), the
+   families phase's shapes in bf16 and f32, each timed (K2 at
+   seamless-m4t-large-v2's encoder, its cross attention at Sq 256 against
+   Skv 1024 and a ragged Sq 200 against Skv 1000, its decoder's prefill
+   and llava-next-mistral-7b's 3072 positions; K1 over seamless's self
+   ring and its cross cache and at llava's decode), and the
    features phase's call patterns (K1 paged at one lane as
    ``prefill_chunk`` calls it, at verify's 4-step window across page
    boundaries, and K1 dense with per-lane positions at the draft and
@@ -121,10 +126,11 @@ caught):
    uninterrupted run; (e) within 1e-5 (loss) and 1e-4 (gradients); no
    kernel launched; under 150 s and 45 GB;
 20. the remaining dense archs (``phase_dense_archs``, budget 200 s,
-   gated): qwen3-8b, stablelm-3b and starcoder2-15b at full width and
-   depth, one after another: (a) served through the runtime (batch 8,
-   prompt 512, 32 tokens; K2 L per prefill, K1 L per token), (b) kernel
-   path against plain path, (c) the engine phase's configuration on its
+   gated): qwen3-8b, stablelm-3b and starcoder2-15b at full width cut to
+   half their depth, one after another: (a) served through the runtime
+   (batch 8, prompt 512, 32 tokens; K2 L per prefill, K1 L per token),
+   (b) kernel path against plain path, (c) the engine phase's
+   configuration on its
    first 8 requests through RequestRouter -> EngineServeTask, single-step
    and 8 fused with one EXECUTE ahead (same tokens; K2 L per admission,
    K1 paged L per decode step, dense K1 never), then a paged decode
@@ -149,7 +155,19 @@ caught):
    the runtime, absorbed against decompressed, the engine on 8 requests
    over a pool of latent pages single-step and fused, a paged step's and
    each bucket's prefill's logits, the expert layer's device time; MLA
-   has no kernel, and any launch fails the phase.
+   has no kernel, and any launch fails the phase;
+23. the last two families (``phase_families``, budget 150 s and 45 GB
+   peak, both gated), each at full width and depth on random weights:
+   (a) seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 16/16
+   heads of 64) served through ``generate`` at batch 8 from 1024 source
+   frames and a target prompt of 256, 32 new tokens (K2 72 per prefill:
+   24 encoder, 24 decoder self, 24 cross at Sq 256 against Skv 1024; K1
+   48 per token: 24 self ring, 24 cross cache; exact by shape); (b)
+   llava-next-mistral-7b (32 layers, 32/8 heads of 128) served the same
+   way from 2880 image embeddings and 192 text tokens (K2 32 per prefill,
+   K1 32 per token); (c) for each, the kernel path against the plain path
+   (blockwise prefill, plain decode) over the prefill and 4 decode steps,
+   within LOGIT_REL_TOL; (d) one warm decode step of each, traced.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -183,6 +201,17 @@ PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 (no TF
 # outputs are about 0.05, and its bound is tighter.
 TOL = {("K1", "bfloat16"): (5e-3, 1e-2), ("K2", "bfloat16"): (2e-2, 2e-2),
        ("K1", "float32"): (1e-4, 1e-4), ("K2", "float32"): (1e-4, 1e-4)}
+# K2 at Sq != Skv (cross attention) in bf16 is also held in L2 to the
+# plain version on f32 copies of the inputs: ||kernel - plain32|| /
+# ||plain32|| <= K2_CROSS_L2.  Its outputs average about Skv keys and are
+# small (std about 0.05), where TOL's atol would hide a fault of the Skv
+# mask: keys past Skv (zeros from the wgmma route's tensor maps, which load
+# whole tiles of K2_TK keys) let into the softmax shrink every output by
+# about 1.4 % at Skv 1000.  The script also computes that fault (the plain
+# version over k/v zero-padded to a multiple of K2_TK) and fails unless it
+# reads above the bound.
+K2_CROSS_L2 = 5e-3
+K2_TK = 64
 # K1 over fewer kept slots than this has outputs of order 1, where the bf16
 # plain version's own rounding of the raw scores q.k (bf16 ulp 0.125 at
 # |q.k| = 32, hd 256) exceeds the bf16 bound above (on the H100 it was
@@ -204,7 +233,8 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_mamba2", "parity_mamba2", "profile_mamba2",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
-          "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla")
+          "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla",
+          "families")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -226,6 +256,12 @@ PATHS = {
     "deepseek_moe": ("deepseek-moe-16b", 512, {"K2": 28}, {"K1": 28}),
     # the mla phase (4 of 61 layers): MLA has no kernel, none may launch
     "deepseek_v3": ("deepseek-v3-671b", 512, {}, {}),
+    # the families phase, served through ``generate``: seamless-m4t-large-v2
+    # (1024 source frames, a target prompt of 256: K2 24 encoder + 24 self
+    # + 24 cross per prefill, K1 24 self + 24 cross per token) and
+    # llava-next-mistral-7b (2880 image + 192 text positions)
+    "seamless": ("seamless-m4t-large-v2", 1024, {"K2": 72}, {"K1": 48}),
+    "llava": ("llava-next-mistral-7b", 3072, {"K2": 32}, {"K1": 32}),
 }
 
 
@@ -351,17 +387,20 @@ def phase_env(state):
 # ---------------------------------------------------------------------------
 
 def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
-                softcap=0.0, time_it=False, repeat=False):
+                softcap=0.0, time_it=False, repeat=False, Skv=None):
+    """K2 at q (B, S, Hq, hd) over k/v (B, Skv, Hkv, hd); ``Skv`` defaults
+    to S (self attention; cross attention passes its source length)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
-               for H in (Hq, Hkv, Hkv))
+    q, k, v = (torch.randn((B, L, H, hd), generator=g, device="cuda").to(dt)
+               for L, H in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
     kw = dict(causal=causal, window=window, softcap=softcap)
     out = flash_attention(q, k, v, **kw)
     ref = flash_attention_ref(q, k, v, **kw)
@@ -369,13 +408,17 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
     err = check_close(f"K2 {tag}", out, ref, dtype)
     rec = {"case": tag, "shape": [B, S, Hq, Hkv, hd], "dtype": dtype,
            "max_abs_err": err, **kw}
+    if Skv != S:
+        rec["skv"] = Skv
+        if dtype != "float32":
+            rec.update(_k2_cross_l2(f"K2 {tag}", q, k, v, out, kw))
     if time_it or repeat:
         rec["bitwise_repeat"] = check_bitwise(
             f"K2 {tag}", lambda: flash_attention(q, k, v, **kw))
     if time_it:
         # visible (q, k) pairs per head: causal rows see i+1 keys
-        vis = sum(min(i + 1, window) if window else i + 1 for i in range(S)) \
-            if causal else S * S
+        vis = sum(min(i + 1, window or Skv, Skv) for i in range(S)) \
+            if causal else S * Skv
         flops = 4 * hd * B * Hq * vis
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bound = max(flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S) * 1e3
@@ -400,6 +443,34 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
             > nbytes / PEAK_BYTES_S else "bytes")
     log(phase="kernels", kernel="K2 flash_attention", **rec)
     state.setdefault("k2", {})[tag] = rec
+
+
+def _k2_cross_l2(name, q, k, v, out, kw):
+    """``out``'s L2 distance from the plain version on f32 copies of the
+    inputs, relative, against K2_CROSS_L2; and that of the Skv mask's fault
+    (keys past Skv, up to a multiple of K2_TK, let in as zeros), which must
+    read above the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    rel = lambda o: ((o.float() - ref).norm() / ref.norm()).item()  # noqa: E731
+    rec = {"l2_vs_f32": rel(out), "l2_bound": K2_CROSS_L2}
+    if not rec["l2_vs_f32"] <= K2_CROSS_L2:
+        raise AssertionError(f"{name}: L2 error {rec['l2_vs_f32']} against "
+                             f"f32 copies (bound {K2_CROSS_L2})")
+    pad = -k.shape[1] % K2_TK
+    if pad:
+        z = k.new_zeros((k.shape[0], pad) + tuple(k.shape[2:]))
+        fault = flash_attention_ref(q.float(), torch.cat([k, z], 1).float(),
+                                    torch.cat([v, z], 1).float(), **kw)
+        rec["l2_of_mask_fault"] = rel(fault)
+        if not rec["l2_of_mask_fault"] > K2_CROSS_L2:
+            raise AssertionError(f"{name}: a mask fault reads "
+                                 f"{rec['l2_of_mask_fault']}, within the "
+                                 f"bound {K2_CROSS_L2}")
+    return rec
 
 
 def _ring_kv_pos(cap, pos):
@@ -973,6 +1044,31 @@ def phase_kernels(state):
     for P in ENGINE["prompt_buckets"]:
         _flash_case(state, f"mha128_engine_p{P}", 1, P, 16, 16, 128,
                     "bfloat16", time_it=True)
+    # the families phase's shapes, bf16 and f32, each timed (same bits on
+    # repeat): seamless-m4t-large-v2 (16/16 heads of 64) K2 over the
+    # encoder's 1024 frames (non-causal), the cross attention at prefill
+    # (256 target rows against 1024 frames, non-causal; and a ragged 200
+    # against 1000), the decoder's causal prefill of 256; K1 over the
+    # decoder's self ring (cap 256 + 128, at pos 270) and over the cross
+    # cache (1024 slots, kv_pos 0..1023, pos 1023); llava-next-mistral-7b
+    # (32/8 heads of 128) K2 over 2880 image + 192 text positions, causal,
+    # and K1 at its decode (cap 3072 + 128, pos 3100)
+    for dt in ("bfloat16", "float32"):
+        sfx = "_f32" if dt == "float32" else ""
+        for case, S, Skv, causal in (("enc", 1024, 1024, False),
+                                     ("cross", 256, 1024, False),
+                                     ("cross_ragged", 200, 1000, False),
+                                     ("dec_prefill", 256, 256, True)):
+            _flash_case(state, case + sfx, 8, S, 16, 16, 64, dt,
+                        causal=causal, Skv=Skv, time_it=True)
+        _flash_case(state, "llava" + sfx, 8, 3072, 32, 8, 128, dt,
+                    time_it=True)
+        _decode_case(state, "seamless_self" + sfx, 8, 384, 16, 16, 64, 270,
+                     dt, time_it=True)
+        _decode_case(state, "cross" + sfx, 8, 1024, 16, 16, 64, 1023, dt,
+                     time_it=True)
+        _decode_case(state, "llava" + sfx, 8, 3200, 32, 8, 128, 3100, dt,
+                     time_it=True)
     # K3 at mamba2-1.3b's prefill shape (64 heads of 64, state 128, chunk
     # 256; bf16 takes the mma route, f32 the CUDA cores), a ragged S, a
     # chunk that is not a multiple of the mma route's 64-row block, and the
@@ -1019,15 +1115,16 @@ def _wrappers():
 
 
 def _zero_counts():
-    """Zeroes every wrapper's count and K1 paged's one-lane count and tally
-    by shape."""
+    """Zeroes every wrapper's count and tally by shape (K1 dense, K1
+    paged, K2) and K1 paged's one-lane count."""
     from repro_torch.kernels.decode_attention.ops import \
         decode_attention_paged
 
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "launches_by_shape"):
+            w.launches_by_shape.clear()
     decode_attention_paged.launches_b1 = 0
-    decode_attention_paged.launches_by_shape.clear()
 
 
 def _counts():
@@ -1071,6 +1168,13 @@ def _serve(state, key, device="cuda", arch=None, prompt_len=None):
     p_arch, p_len, per_prefill, per_token = PATHS[key]
     arch, prompt_len = arch or p_arch, prompt_len or p_len
     cfg = get_arch(arch)
+    full = get_arch(p_arch).num_layers
+    if device == "cuda" and cfg.num_layers != full:
+        # a depth cut of the path's dense arch (``_depth_cut``): one launch
+        # a layer, so the counts of its layers
+        per_prefill, per_token = ({k: n * cfg.num_layers // full
+                                   for k, n in d.items()}
+                                  for d in (per_prefill, per_token))
     im = TaskImage(name="chip-smoke", kind="serve", arch=arch,
                    prompt_len=prompt_len, global_batch=8, total_steps=4,
                    tokens_per_step=8, seed=SEED)
@@ -4062,7 +4166,11 @@ def _train_card_vs_cpu(tc, base, device, names):
 # RequestRouter -> EngineServeTask, single-step and 8 fused with one
 # EXECUTE ahead, then on a monitor to iteration ``logit_at`` for the logit
 # checks.  Cut: 8 of the 24 requests, no evict/resume run.
+# each arch at full width cut to half its depth (``_depth_cut``), which
+# keeps the whole script near 830 s on an H100 with the families phase
+# (at full depth the phase took 84.2 s of a 908 s script)
 DENSE_ARCHS = dict(keys=("qwen3", "stablelm", "starcoder2"), archs=None,
+                   layers={"qwen3": 18, "stablelm": 16, "starcoder2": 20},
                    serve_prompt=None, engine=dict(ENGINE, n_requests=8),
                    logit_at=6, max_phase_s=200)
 
@@ -4187,7 +4295,8 @@ def _logit_gate(rec, ec):
 def phase_dense_archs(state, device="cuda", cut=None):
     """qwen3-8b (qk-norm), stablelm-3b (LayerNorm, rotary on a quarter of
     hd 80, MHA) and starcoder2-15b (LayerNorm, GELU, group 12) at full
-    width, one after another, each freed before the next (``_arch_run``):
+    width cut to half their depth (``layers``: 18 of 36, 16 of 32, 20 of
+    40), one after another, each freed before the next (``_arch_run``):
     (a) served through the runtime with exact launch counts (``PATHS``),
     (b) kernel path against plain path within LOGIT_REL_TOL, (c) the engine
     path of ``DENSE_ARCHS`` (single-step and fused transcripts identical;
@@ -4204,11 +4313,13 @@ def phase_dense_archs(state, device="cuda", cut=None):
     archs = dc["archs"] or tuple(PATHS[k][0] for k in dc["keys"])
     out, launches = {}, collections.Counter()
     for key, arch in zip(dc["keys"], archs):
-        cfg = get_arch(arch)
-        rec, runs = _arch_run(state, key, arch, device, ec, dc["logit_at"],
-                              dc["serve_prompt"])
+        with _depth_cut(arch, dc["layers"][key]) as cut:
+            cfg = get_arch(cut)
+            rec, runs = _arch_run(state, key, cut, device, ec,
+                                  dc["logit_at"], dc["serve_prompt"])
         launches.update(runs)
-        rec.update(head_dim=cfg.head_dim_,
+        rec.update(layers_of=get_arch(arch).num_layers,
+                   head_dim=cfg.head_dim_,
                    heads=[cfg.num_heads, cfg.num_kv_heads],
                    norm=cfg.norm_kind, qk_norm=cfg.qk_norm,
                    mlp=cfg.mlp_kind, rope_pct=cfg.rope_pct)
@@ -4457,6 +4568,235 @@ def phase_mla(state, device="cuda", cut=None):
 
 
 # ---------------------------------------------------------------------------
+# 23. the encoder-decoder and the VLM
+# ---------------------------------------------------------------------------
+
+# both at full width and depth, batch 8, 32 new tokens through ``generate``;
+# the logit parity at the same batch (both paths' caches fit beside the
+# weights)
+FAMILIES = dict(keys=("seamless", "llava"), archs=None, seq=None, batch=8,
+                new_tokens=32, parity_steps=4, max_phase_s=150,
+                max_peak_gb=45)
+
+
+def _family_batch(cfg, S, B, device):
+    """The prompt of ``make_batch``'s batch at ``S`` and ``B``: encdec
+    ``src_emb`` (S frames) and ``tgt_tokens`` (S * tgt_ratio); vlm
+    ``img_emb`` (num_image_tokens) and ``tokens`` (S - num_image_tokens).
+    Returns it on ``device`` and the first decode position."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.train import make_batch
+
+    b = make_batch(cfg, ShapeConfig("p", "train", S, B), 0)
+    if cfg.family == "encdec":
+        keys, pos = ("src_emb", "tgt_tokens"), b["tgt_tokens"].shape[1]
+    else:
+        keys = ("tokens", "img_emb")
+        pos = b["tokens"].shape[1] + cfg.num_image_tokens
+    return {k: torch.as_tensor(b[k]).to(device) for k in keys}, pos
+
+
+def _family_shapes(cfg, batch, B, n_tok, margin):
+    """The launches a served run must make, by case and by the wrappers'
+    shape keys: K2 once a layer per prefill (encdec: encoder, decoder
+    self and cross), K1 once a layer per token (encdec: self and cross)."""
+    if cfg.family == "encdec":
+        L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim_
+        S, T = batch["src_emb"].shape[1], batch["tgt_tokens"].shape[1]
+        kv = cfg.num_kv_heads
+        k2 = {"enc": ((B, S, S, H, kv, hd, False), cfg.encoder_layers),
+              "dec_prefill": ((B, T, T, H, kv, hd, True), L),
+              "cross": ((B, T, S, H, kv, hd, False), L)}
+        k1 = {"seamless_self": ((B, T + margin, H, kv, hd), L * n_tok),
+              "cross": ((B, S, H, kv, hd), L * n_tok)}
+    else:
+        L, H, kv, hd = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim_)
+        S = batch["tokens"].shape[1] + cfg.num_image_tokens
+        k2 = {"llava": ((B, S, S, H, kv, hd, True), L)}
+        k1 = {"llava": ((B, S + margin, H, kv, hd), L * n_tok)}
+    return k2, k1
+
+
+def _family_parity(kern, plain, params, batch, pos, steps):
+    """The kernel path and the plain path (blockwise prefill, plain
+    decode) on one set of weights: prefill, then ``steps`` decode steps of
+    the kernel path's tokens.  Returns max|logit - plain| / max|plain| per
+    step, the greedy-token agreement, the kernel path's logits, caches and
+    position after the last step, and its warm prefill seconds."""
+    import torch
+
+    rels, agree = [], []
+    with torch.no_grad():
+        plain_out = plain.prefill_fn(params, batch)
+        t0 = time.perf_counter()
+        out = kern.prefill_fn(params, batch)
+        if out[0].is_cuda:
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for i in range(steps + 1):
+            kl, pl = out[0].float(), plain_out[0].float()
+            rels.append(((kl - pl).abs().max() / pl.abs().max()).item())
+            agree.append((kl.argmax(-1) == pl.argmax(-1)).float().mean()
+                         .item())
+            if i == steps:
+                break
+            tok = out[0].argmax(-1).to(torch.int32)
+            out = kern.decode_fn(params, tok, pos + i, out[1], inplace=True)
+            plain_out = plain.decode_fn(params, tok, pos + i, plain_out[1],
+                                        inplace=True)
+    del plain_out
+    return rels, agree, out, pos + steps, prefill_s
+
+
+def _family_run(state, key, arch, fc, device):
+    """One arch of the families phase, freed before it returns: (a) or (b)
+    served through ``generate`` with exact launch counts by shape, (c) the
+    kernel path against the plain path, (d) one warm decode step traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve import generate
+
+    t_arch = time.perf_counter()
+    cfg = get_arch(arch)
+    kern = build_model(cfg)
+    plain = build_model(cfg, prefill_impl="blockwise", decode_impl="naive")
+    B, n_tok = fc["batch"], fc["new_tokens"]
+    params = kern.init(SEED, device=device)
+    batch, pos = _family_batch(cfg, fc["seq"] or PATHS[key][1], B, device)
+    k2, k1 = _family_shapes(cfg, batch, B, n_tok, kern.cache_margin)
+    # (a)/(b) served: the counts zeroed just before, read just after
+    _zero_counts()
+    t0 = time.perf_counter()
+    toks = generate(kern, params, batch, n_tok)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    by_shape = {"K2": dict(_wrappers()["K2"].launches_by_shape),
+                "K1": dict(_wrappers()["K1"].launches_by_shape)}
+    if tuple(toks.shape) != (B, n_tok) or not (
+            (0 <= toks) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: bad tokens {tuple(toks.shape)}")
+    per_prefill, per_token = PATHS[key][2:]
+    expected = {k: per_prefill.get(k, 0) + n_tok * per_token.get(k, 0)
+                for k in _wrappers()}
+    want_shapes = {"K2": {s: n for s, n in k2.values()},
+                   "K1": {s: n for s, n in k1.values()}}
+    if device == "cuda" and (
+            {k: launches[k] for k in expected} != expected
+            or by_shape != want_shapes):
+        raise AssertionError(f"{arch}: launches {launches} by shape "
+                             f"{by_shape}, expected {expected} by shape "
+                             f"{want_shapes} (one prefill, {n_tok} tokens)")
+    # (c) the kernel path against the plain path on the same weights
+    rels, agree, run, run_pos, prefill_s = _family_parity(
+        kern, plain, params, batch, pos, fc["parity_steps"])
+    rec = {"arch": arch, "family": cfg.family, "batch": B,
+           "prompt": {k: list(t.shape) for k, t in batch.items()},
+           "first_decode_pos": pos, "new_tokens": n_tok,
+           "layers": [cfg.encoder_layers, cfg.num_layers],
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim_, "params": cfg.param_count(),
+           "served": {"wall_s": wall, "decode_tokens_per_s_incl_prefill":
+                      B * n_tok / wall, "launches": launches,
+                      "launches_by_case": {
+                          "K2": {c: by_shape["K2"].get(s, 0)
+                                 for c, (s, _) in k2.items()},
+                          "K1": {c: by_shape["K1"].get(s, 0)
+                                 for c, (s, _) in k1.items()}},
+                      "last_tokens": toks[:, -1].tolist()},
+           "parity": {"logit_rel_err": rels, "token_agreement": agree,
+                      "bound": LOGIT_REL_TOL, "batch": B},
+           "prefill_warm_s": prefill_s}
+    del toks
+    # (d) one warm decode step of the kernel path, timed and traced
+    if device == "cuda":
+        def decode():
+            nonlocal run_pos
+            tok = run[0].argmax(-1).to(torch.int32)
+            run[:] = kern.decode_fn(params, tok, run_pos, run[1],
+                                    inplace=True)
+            run_pos += 1
+
+        run = list(run)
+        with torch.no_grad():
+            timed(decode, 2)
+            rec["decode_step_warm_ms"] = timed(decode, 4) / 4 * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = timed(decode, 2)
+        rec["decode_trace"] = _trace_summary(prof, wall, 2)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del run, params, batch
+    if device == "cuda":
+        _free_cuda()
+    rec["arch_s"] = time.perf_counter() - t_arch
+    return rec
+
+
+def phase_families(state, device="cuda", cut=None):
+    """The last two families at full width and depth, one after the other,
+    each freed before the next (``_family_run``), on random weights from
+    ``SEED``: (a) seamless-m4t-large-v2 (24 encoder + 24 decoder layers,
+    d_model 1024, 16/16 heads of 64, vocab 256206; 1.63 B parameters)
+    served through ``generate`` at batch 8 from 1024 source frames
+    (``src_emb``, the stubbed speech frontend) and a target prompt of 256,
+    32 new tokens: K2 72 launches per prefill (24 encoder, non-causal; 24
+    decoder self, causal; 24 cross, 256 rows against 1024) and K1 48 per
+    token (24 self ring, 24 cross cache), exact by shape; (b)
+    llava-next-mistral-7b (32 layers, 32/8 heads of 128; 7.24 B
+    parameters) served the same way from 2880 image embeddings (anyres
+    5 x 576) and 192 text tokens: K2 32 per prefill, K1 32 per token,
+    decoding from position 3072; (c) for each, the kernel path against the
+    plain path (blockwise prefill, plain decode) on the same weights over
+    the prefill and 4 decode steps, within LOGIT_REL_TOL at the served
+    batch; (d) one warm decode step of each, traced (busy share,
+    launches, the kernels that take the time).  The phase holds under
+    ``max_phase_s`` and ``max_peak_gb``.  ``cut`` overrides ``FAMILIES``
+    (``archs``, ``seq``, ``batch`` and ``new_tokens`` replace the paths':
+    a rehearsal on the CPU at smoke size, where nothing launches and the
+    counts, the logit gate and the trace are not checked)."""
+    import torch
+
+    fc = dict(FAMILIES, **(cut or {}))
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    archs = fc["archs"] or tuple(PATHS[k][0] for k in fc["keys"])
+    out = {}
+    for key, arch in zip(fc["keys"], archs):
+        rec = _family_run(state, key, arch, fc, device)
+        log(phase="families", card=state.get("card"), **rec)
+        out[key] = rec
+        state.setdefault("launches", {})[key] = rec["served"]["launches"]
+        if device == "cuda" and max(rec["parity"]["logit_rel_err"]) \
+                > LOGIT_REL_TOL:
+            raise AssertionError(f"{arch}: kernel vs plain logits differ by "
+                                 f"{rec['parity']['logit_rel_err']}")
+    stats = {"phase_s": time.perf_counter() - t_phase}
+    if device == "cuda":
+        stats["peak_gb"] = max(r["peak_gb"] for r in out.values())
+    log(phase="families", card=state.get("card"), summary=stats)
+    state["families"] = {**out, **stats}
+    if device != "cuda":
+        return
+    if stats["peak_gb"] > fc["max_peak_gb"]:
+        raise AssertionError(f"families: peak {stats['peak_gb']:.2f} GB, "
+                             f"over {fc['max_peak_gb']} GB")
+    if stats["phase_s"] > fc["max_phase_s"]:
+        raise AssertionError(f"families: the phase took "
+                             f"{stats['phase_s']:.1f} s, over "
+                             f"{fc['max_phase_s']} s")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -4573,6 +4913,30 @@ def kernel_line(state):
                 "library_ms": r.get("library_device_ms"),
                 **({"library_gathered_ms": r["library_gathered_device_ms"]}
                    if "library_gathered_device_ms" in r else {})})
+    # the families phase's shapes (bf16), each with its launches on the
+    # served run, counted by shape: seamless-m4t-large-v2's K2 over the
+    # encoder, the decoder's prefill and the cross attention, and K1 over
+    # the self ring and the cross cache; llava-next-mistral-7b's K2 and K1
+    for key, kkey, case in (("seamless", "k2", "enc"),
+                            ("seamless", "k2", "dec_prefill"),
+                            ("seamless", "k2", "cross"),
+                            ("seamless", "k1", "seamless_self"),
+                            ("seamless", "k1", "cross"),
+                            ("llava", "k2", "llava"),
+                            ("llava", "k1", "llava")):
+        kfile, line = (("flash_attention", 95) if kkey == "k2"
+                       else ("decode_attention", 83))
+        r = state[kkey][case]
+        served = state["families"][key]["served"]
+        rows.append({
+            "name": f"{kfile} ({PATHS[key][0]}: {case})", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kfile}.cu",
+            "replaces": f"src/repro/kernels/{kfile}/kernel.py:{line}",
+            "launches": served["launches_by_case"][kkey.upper()][case],
+            "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+            "event_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_device_ms")})
     return {"kernels": rows}
 
 

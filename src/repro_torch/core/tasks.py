@@ -168,10 +168,13 @@ class TrainTask(GuestTask):
         params_abs = self._bundle.init(0, device=meta)
         opt_abs = init_opt_state(self.image.opt, params_abs)
         grad_abs = self._grad_init(params_abs)
-        mb = (self.image.global_batch // self.image.chunks,
-              self.image.seq_len)
-        mb_abs = {k: torch.empty(mb, dtype=torch.int32, device=meta)
-                  for k in ("tokens", "targets")}
+        # one microbatch of the family's batch (make_batch's keys, shapes
+        # and dtypes: a vlm's img_emb and an encdec's src_emb are float32)
+        mb = self.image.global_batch // self.image.chunks
+        mb_abs = {k: torch.empty((mb,) + x.shape[1:],
+                                 dtype=torch.from_numpy(x[:0]).dtype,
+                                 device=meta)
+                  for k, x in make_batch(self.cfg, self.shape, 0).items()}
         return params_abs, opt_abs, grad_abs, mb_abs
 
     def setup(self, cl: FunkyCL, gs: GuestState, restore: bool) -> None:

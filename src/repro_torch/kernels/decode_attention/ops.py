@@ -2,7 +2,9 @@
 
 On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
 the plain version ``decode_attention_ref``.  ``decode_attention.launches``
-counts kernel launches (not plain-version calls).
+counts kernel launches (not plain-version calls), and
+``decode_attention.launches_by_shape`` tallies them by ``(B, cap, Hq, Hkv,
+hd)``, which tells an encoder-decoder's self ring from its cross cache.
 
 The kernel splits each (lane, kv head)'s cache across the CTAs of one
 thread-block cluster and merges their partial softmaxes in the same launch;
@@ -185,10 +187,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 stream_of(q))
     raise_on_error("decode_attention", rc)
     decode_attention.launches += 1
+    by_shape, key = decode_attention.launches_by_shape, (B, cap, Hq, Hkv, hd)
+    by_shape[key] = by_shape.get(key, 0) + 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_shape = {}
 
 
 def _check_page_view(name: str, t: torch.Tensor, inner: tuple,

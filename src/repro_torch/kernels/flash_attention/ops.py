@@ -3,7 +3,11 @@
 
 On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
 the plain version ``flash_attention_ref``.  ``flash_attention.launches``
-counts kernel launches (not plain-version calls).
+counts kernel launches (not plain-version calls), and
+``flash_attention.launches_by_shape`` tallies them by ``(B, Sq, Skv, Hq,
+Hkv, hd, causal)``, which tells an encoder-decoder's encoder, decoder
+prefill and cross attention apart.  Sq and Skv may differ (cross
+attention); both sets of positions start at 0.
 """
 
 from __future__ import annotations
@@ -54,7 +58,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 float(softcap), stream_of(q))
     raise_on_error("flash_attention", rc)
     flash_attention.launches += 1
+    by_shape = flash_attention.launches_by_shape
+    key = (B, Sq, Skv, Hq, Hkv, hd, bool(causal))
+    by_shape[key] = by_shape.get(key, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_shape = {}

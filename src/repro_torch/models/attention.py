@@ -17,7 +17,8 @@ at slot ``pos % cap``) where the reference built a new array with
 same.  Callers that need the old cache intact pass a copy.
 
 ``gqa_fwd`` is the training forward: full-sequence causal attention on a
-plain version, which autograd differentiates.
+plain version, which autograd differentiates.  ``gqa_encode`` is the
+encoder-decoder's non-causal encoder attention, on K2 or a plain version.
 
 ``gqa_decode_paged`` is the serving engine's decode over the paged pool
 (``serve/kvcache.py``): the whole lane batch at once, each lane at its own
@@ -203,6 +204,21 @@ def gqa_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if impl not in ("naive", "blockwise"):
         raise ValueError(f"gqa_fwd: impl {impl!r} has no backward "
                          "(training runs the plain versions)")
+    return _gqa_full(cfg, p, x, window=window, causal=causal, impl=impl,
+                     positions=positions, chunk=chunk)
+
+
+def gqa_encode(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+               impl: str) -> torch.Tensor:
+    """Full-sequence non-causal attention, no cache: the encoder's self
+    attention (positions ``0..S-1``).  ``impl`` "kernel" puts it on K2;
+    "naive" and "blockwise" are the plain versions, as in ``gqa_fwd``
+    (autograd differentiates them)."""
+    return _gqa_full(cfg, p, x, window=None, causal=False, impl=impl,
+                     positions=None, chunk=1024)
+
+
+def _gqa_full(cfg, p, x, *, window, causal, impl, positions, chunk):
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)

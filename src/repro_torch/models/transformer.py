@@ -1,4 +1,4 @@
-"""Decoder-only LM composer: the dense, moe, ssm and hybrid families.
+"""Decoder-only LM composer: the dense, vlm, moe, ssm and hybrid families.
 
 As in the reference, an architecture is a list of **segments**, each
 ``count`` repetitions of a tuple of block specs, with every segment's
@@ -9,6 +9,8 @@ parameters and caches stacked along a leading ``count`` axis:
     stablelm-3b:      [32 x ("attn+mlp",)]     (LayerNorm, rotary on a
                                                 quarter of hd 80)
     starcoder2-15b:   [40 x ("attn+mlp",)]     (LayerNorm, GELU mlp)
+    llava-next-mistral-7b: [32 x ("attn+mlp",)]  (vlm: image
+                                                embeddings in front)
     deepseek-moe-16b: [1 x ("attn+mlp",), 27 x ("attn+moe",)]
     deepseek-v3:      [3 x ("mla+mlp",), 58 x ("mla+moe",)]
     mamba2:           [48 x ("ssm",)]
@@ -82,9 +84,10 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
                 mixer, "mlp", d_ff=cfg.moe.dense_d_ff),)))
         segs.append(Segment(L - nd, (BlockSpec(mixer, "moe"),)))
         return segs
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(dense, moe, ssm, hybrid)")
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the encoder-decoder is not a "
+                         "decoder-only plan; its model is models/encdec.py")
+    # dense / vlm
     return [Segment(L, (BlockSpec(
         "attn", "mlp", window=cfg.sliding_window, d_ff=cfg.d_ff),))]
 
@@ -330,15 +333,27 @@ def lm_backbone(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
     return h, aux, (None if mode == "train" else tuple(caches_out))
 
 
+def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
+    """The token embeddings, and a vlm's ``img_emb`` (B, N, D) spliced in
+    front (cast to the embeddings' dtype).  Returns (h, N spliced)."""
+    h = embed_fwd(cfg, params["embed"], batch["tokens"])
+    if not (cfg.num_image_tokens and "img_emb" in batch):
+        return h, 0
+    img = torch.as_tensor(batch["img_emb"], device=h.device).to(h.dtype)
+    return torch.cat([img, h], dim=1), cfg.num_image_tokens
+
+
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: str = "none"):
-    """batch: tokens (B, S) int, targets (B, S) int, optional loss_mask.
-    Returns (total, {"loss", "aux_loss"}): with MoE blocks total = loss +
-    ``router_aux_weight`` * aux, the aux loss summed over the blocks;
-    without, the aux loss is zero and total is the loss."""
-    h = embed_fwd(cfg, params["embed"], batch["tokens"])
+    """batch: tokens (B, S) int, targets (B, S) int, optional loss_mask,
+    optional img_emb (B, N, D) spliced in front (vlm; the loss is over
+    the text positions only).  Returns (total, {"loss", "aux_loss"}):
+    with MoE blocks total = loss + ``router_aux_weight`` * aux, the aux
+    loss summed over the blocks; without, the aux loss is zero and total
+    is the loss."""
+    h, n_img = _embed_inputs(cfg, params, batch)
     h, aux, _ = lm_backbone(cfg, params, h, mode="train", remat=remat)
-    logits = lm_head_fwd(cfg, params["embed"], h)
+    logits = lm_head_fwd(cfg, params["embed"], h[:, n_img:, :])
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
     if aux is None:
         return loss, {"loss": loss,
@@ -351,8 +366,9 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
 def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                impl: str = "kernel", prefill_chunk: int = 1024,
                cache_margin: int = 0):
-    """Returns (last-token logits (B, V), caches)."""
-    h = embed_fwd(cfg, params["embed"], batch["tokens"])
+    """Returns (last-token logits (B, V), caches).  A vlm batch's
+    ``img_emb`` takes positions ``0..N-1``, the text follows it."""
+    h, _ = _embed_inputs(cfg, params, batch)
     h, _, caches = lm_backbone(cfg, params, h, mode="prefill",
                                prefill_impl=impl, decode_impl="kernel",
                                prefill_chunk=prefill_chunk,

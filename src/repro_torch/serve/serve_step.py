@@ -14,9 +14,14 @@ from repro_torch.models.model_zoo import ModelBundle
 def generate(bundle: ModelBundle, params, prompt_batch: dict,
              num_tokens: int) -> torch.Tensor:
     """Prefill + greedy-decode ``num_tokens`` tokens. Returns (B,
-    num_tokens) int32 ids: token i is the argmax after i decode steps."""
+    num_tokens) int32 ids: token i is the argmax after i decode steps.
+    The first decode position follows the prompt: ``tgt_tokens`` for the
+    encoder-decoder, else ``tokens``, after the ``num_image_tokens`` image
+    embeddings for a vlm."""
     logits, caches = bundle.prefill_fn(params, prompt_batch)
-    pos = prompt_batch["tokens"].shape[1]
+    pos = prompt_batch.get("tgt_tokens", prompt_batch.get("tokens")).shape[1]
+    if bundle.cfg.family == "vlm":
+        pos += bundle.cfg.num_image_tokens
     toks = []
     for i in range(num_tokens):
         tok = logits.argmax(dim=-1).to(torch.int32)

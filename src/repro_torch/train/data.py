@@ -4,8 +4,11 @@ Batches are a pure function of ``(seed, step)`` via numpy Philox
 counters, the same rule as the reference package, so both give the same
 arrays, and a resumed or migrated task regenerates exactly the batch
 stream it would have seen.  A background prefetch thread overlaps host
-batch generation with device compute.  The decoder-only families (dense,
-moe, ssm, hybrid) are ported; vlm and encdec batches raise.
+batch generation with device compute.  Every family of the reference has
+its batch: tokens and targets; for vlm also ``img_emb``, the stubbed image
+frontend's patch embeddings spliced in front of the text; for encdec the
+stubbed speech frontend's frame embeddings ``src_emb`` and the target's
+``tgt_tokens`` and ``tgt_targets``.
 """
 
 from __future__ import annotations
@@ -36,17 +39,39 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
                data_cfg: DataConfig | None = None,
                batch_override: Optional[int] = None,
                seq_override: Optional[int] = None) -> dict:
-    """Training batch for (arch, shape) at a given step (host numpy)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"make_batch: family {cfg.family!r} is not ported yet")
+    """Training batch for (arch, shape) at a given step (host numpy).
+    encdec: ``S`` source frames and ``max(S * tgt_ratio, 8)`` target
+    tokens; vlm: ``max(S - num_image_tokens, 8)`` text tokens after the
+    image's ``num_image_tokens`` embeddings."""
     dc = data_cfg or DataConfig()
     B = batch_override or shape.global_batch
     S = seq_override or shape.seq_len
     B_local = B // dc.process_count
     rng = _rng(dc.seed, step, dc.process_index)
-    t = rng.integers(0, cfg.vocab_size, size=(B_local, S + 1),
-                     dtype=np.int32)
+
+    def toks(*s):
+        return rng.integers(0, cfg.vocab_size, size=s, dtype=np.int32)
+
+    if cfg.family == "encdec":
+        T = max(int(S * cfg.tgt_ratio), 8)
+        tgt = toks(B_local, T + 1)
+        return {
+            "src_emb": rng.standard_normal(
+                (B_local, S, cfg.d_model), dtype=np.float32) * 0.02,
+            "tgt_tokens": tgt[:, :-1],
+            "tgt_targets": tgt[:, 1:],
+        }
+    if cfg.family == "vlm":
+        Stext = max(S - cfg.num_image_tokens, 8)
+        t = toks(B_local, Stext + 1)
+        return {
+            "tokens": t[:, :-1],
+            "targets": t[:, 1:],
+            "img_emb": rng.standard_normal(
+                (B_local, cfg.num_image_tokens, cfg.d_model),
+                dtype=np.float32) * 0.02,
+        }
+    t = toks(B_local, S + 1)
     return {"tokens": t[:, :-1], "targets": t[:, 1:]}
 
 

@@ -46,7 +46,10 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.configs.starcoder2_15b",
              "repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
              "repro_torch.configs.deepseek_v3_671b",
-             "repro_torch.models.attention", "repro_torch.serve.kvcache"}
+             "repro_torch.models.attention", "repro_torch.serve.kvcache",
+             "repro_torch.models.encdec",
+             "repro_torch.configs.seamless_m4t_large_v2",
+             "repro_torch.configs.llava_next_mistral_7b"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -256,3 +259,32 @@ def test_chip_smoke_mla_phase_rehearses_on_the_cpu():
     a = d["engine"]["a_single_step"]
     assert a["prefills"] >= 4 and a["decode_steps"] > 0
     assert not any(state["launches"]["mla"].values())
+
+
+def test_chip_smoke_families_phase_rehearses_on_the_cpu():
+    """The ``families`` phase's code path on both smoke archs on the CPU:
+    seamless-m4t-large-v2-smoke and llava-next-mistral-7b-smoke served
+    through ``generate`` (encdec from source frames and target tokens, the
+    vlm decoding after its image), kernel path against plain path within
+    the card's bound here too; nothing launches (the counts, the logit
+    gate and the trace are checked only on the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    chip_smoke.phase_families(state, device="cpu", cut=dict(
+        archs=("seamless-m4t-large-v2-smoke", "llava-next-mistral-7b-smoke"),
+        seq=32, batch=2, new_tokens=4))
+    s, v = state["families"]["seamless"], state["families"]["llava"]
+    assert s["prompt"] == {"src_emb": [2, 32, 64], "tgt_tokens": [2, 8]}
+    assert s["first_decode_pos"] == 8 and s["layers"] == [2, 4]
+    assert v["prompt"] == {"tokens": [2, 24], "img_emb": [2, 8, 64]}
+    assert v["first_decode_pos"] == 32
+    for rec in (s, v):
+        assert 0 < max(rec["parity"]["logit_rel_err"]) \
+            < chip_smoke.LOGIT_REL_TOL
+        assert not any(rec["served"]["launches"].values())
+    assert set(s["served"]["launches_by_case"]["K2"]) == {
+        "enc", "dec_prefill", "cross"}

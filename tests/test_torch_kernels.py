@@ -66,10 +66,19 @@ def _ring_kv_pos(cap, pos, hole=None):
     (1, 64, 4, 2, 32, False, 0),
     (1, 128, 4, 4, 80, True, 0),       # stablelm-3b: hd 80, MHA (G 1)
     (1, 128, 12, 1, 128, True, 0),     # starcoder2-15b: G 12
+    # cross attention, S = (Sq, Skv): non-causal, Sq != Skv; at
+    # seamless-m4t-large-v2's heads (16/16 of 64) too
+    (2, (64, 128), 4, 2, 32, False, 0),
+    (1, (64, 192), 16, 16, 64, False, 0),
 ])
 def test_flash_plain_matches_pallas(B, S, Hq, Hkv, hd, causal, window, dtype):
-    q, k, v = _normal(B * 7 + S, (B, S, Hq, hd), (B, S, Hkv, hd),
-                      (B, S, Hkv, hd))
+    if isinstance(S, tuple):
+        (Sq, Skv), seed = S, B * 7 + sum(S)
+    else:
+        Sq = Skv = S
+        seed = B * 7 + S
+    q, k, v = _normal(seed, (B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                      (B, Skv, Hkv, hd))
     jout = flash_attention_fwd(_j(q, dtype), _j(k, dtype), _j(v, dtype),
                                causal=causal, window=window, bq=64, bk=64,
                                interpret=True)
@@ -194,6 +203,20 @@ def test_wrappers_accept_head_dim_256():
         da_check(torch.empty((2, 1, 32, 256)), k, k)
 
 
+def test_flash_wrapper_takes_sq_ne_skv_of_one_batch():
+    """Cross attention: K2 takes Sq != Skv, never a k/v batch other than
+    q's."""
+    from repro_torch.kernels.flash_attention.ops import \
+        check_shapes as fa_check
+
+    q = torch.empty((8, 256, 16, 64))
+    fa_check(q, torch.empty((8, 1024, 16, 64)), torch.empty((8, 1024, 16,
+                                                             64)))
+    with pytest.raises(ValueError, match="does not match"):
+        kv = torch.empty((4, 1024, 16, 64))
+        fa_check(q, kv, kv)
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -222,6 +245,28 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, S, window, softcap,
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv", [(56, 200), (200, 1000), (256, 64)])
+def test_flash_kernel_at_sq_ne_skv_matches_plain_on_card(cuda, dtype, Sq,
+                                                         Skv):
+    """Cross attention (non-causal, Sq != Skv) at seamless-m4t-large-v2's
+    heads; the launch is tallied under its shape."""
+    q, k, v = (_t(x, dtype).to(cuda) for x in _normal(
+        Sq + Skv, (2, Sq, 16, 64), (2, Skv, 16, 64), (2, Skv, 16, 64)))
+    key = (2, Sq, Skv, 16, 16, 64, False)
+    before = flash_attention.launches_by_shape.get(key, 0)
+    out = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_ref(q, k, v, causal=False)
+    assert flash_attention.launches_by_shape[key] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=TOL[dtype])
+    if dtype == "bfloat16":     # small outputs: also in L2 against f32
+        r32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=False)
+        assert ((out.float() - r32).norm() / r32.norm()).item() < 5e-3
 
 
 @pytest.mark.gpu

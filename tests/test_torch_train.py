@@ -186,10 +186,17 @@ def test_data_pipeline_deterministic():
 def test_data_families():
     b = make_batch(get_arch("mamba2-1.3b-smoke"), SHAPE, 0)
     assert b["tokens"].shape == (8, 32)
-    for family in ("vlm", "encdec"):
-        cfg = dataclasses.replace(get_arch("yi-9b-smoke"), family=family)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_batch(cfg, SHAPE, 0)
+    # vlm: 8 image embeddings of the smoke width, 32 - 8 text tokens
+    b = make_batch(get_arch("llava-next-mistral-7b-smoke"), SHAPE, 0)
+    assert {k: v.shape for k, v in b.items()} == {
+        "tokens": (8, 24), "targets": (8, 24), "img_emb": (8, 8, 64)}
+    assert b["img_emb"].dtype == np.float32
+    # encdec: 32 source frames, a target of max(32 / 4, 8)
+    b = make_batch(get_arch("seamless-m4t-large-v2-smoke"), SHAPE, 0)
+    assert {k: v.shape for k, v in b.items()} == {
+        "src_emb": (8, 32, 64), "tgt_tokens": (8, 8), "tgt_targets": (8, 8)}
+    np.testing.assert_array_equal(b["tgt_tokens"][:, 1:],
+                                  b["tgt_targets"][:, :-1])
 
 
 def test_prefetching_loader():
