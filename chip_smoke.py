@@ -63,11 +63,12 @@ caught):
    decode): per prefill K4 26 and K2 12 launches, per token K1 12;
 13. evict/resume on the card at mamba2-1.3b-smoke and
    recurrentgemma-9b-smoke;
-14. the paged continuous-batching engine at full-width yi-9b
-   (``phase_engine``): 24 requests through RequestRouter ->
+14. the paged continuous-batching engine at full-width yi-9b cut to 12
+   of its 48 layers (``phase_engine``; the orch phase runs it at full
+   depth): 24 requests through RequestRouter ->
    EngineServeTask -> FunkyRuntime, single-step and 8 steps fused, and on
    a monitor with evict/resume every 16 iterations; identical tokens,
-   exact launch counts (paged K1 48 per decode step, K2 48 per prefill,
+   exact launch counts (paged K1 12 per decode step, K2 12 per prefill,
    dense K1 none), OOM preemption and compaction, page-granular evicts,
    kernel-path logits against the plain path's, one traced decode step;
 15. the engine's features at full-width yi-9b cut to 12 of its 48
@@ -167,7 +168,22 @@ caught):
    way from 2880 image embeddings and 192 text tokens (K2 32 per prefill,
    K1 32 per token); (c) for each, the kernel path against the plain path
    (blockwise prefill, plain decode) over the prefill and 4 decode steps,
-   within LOGIT_REL_TOL; (d) one warm decode step of each, traced.
+   within LOGIT_REL_TOL; (d) one warm decode step of each, traced;
+24. the launch layer (``phase_launch``, budget 120 s and 45 GB peak, both
+   gated), through the entry points a user calls: (a)
+   ``repro_torch.launch.serve.main`` serving full-width qwen3-8b cut to 18
+   of its 36 layers (batch 8, prompt 512, 64 tokens; K2 18 per prefill,
+   K1 18 per token, exactly), its last tokens equal to a ``ServeTask``'s
+   on the same image run directly; (c) ``launch.steps.build_cell`` train
+   steps at the ``train`` phase's cut (yi-9b at 8 of 48 layers, seq 1024,
+   batch 8 in 2 microbatches) with ``remat`` "none", "full" and "dots":
+   equal first-step losses, gradient norms within 1e-5, peaks and the
+   bytes autograd holds after a forward both ordered full < dots < none;
+   (b) fig04's pair through ``launch.train.main``, native and through
+   Funky (4 steps of 4 chunks): equal final losses, bit for bit, and the
+   overhead; (d) ``launch.roofline``'s bound beside (a)'s prefill, (a)'s
+   decode step and (c)'s step, ``launch.dryrun``'s meta-device peak
+   beside (c)'s measured ones.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -190,9 +206,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's peaks (HBM3 bytes/s; dense bf16 and f32 FLOP/s, no TF32),
+# the port's roofline constants (fails outside a checkout of the repo)
+from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOP_S  # noqa: E402
+
 SEED = 0
-PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
-PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 (no TF32)
 # kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|, by
 # (kernel, dtype).  The plain version rounds scores and probabilities to the
 # working type where the kernels keep f32, so bf16 differs by a few bf16
@@ -234,7 +254,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
           "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla",
-          "families")
+          "families", "launch")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -1600,9 +1620,14 @@ def phase_evict_new(state):
 # prompt buckets 128 and 512; a pool of ENGINE["pool_pages"] pages (the
 # worst case is 8 x 37) so that lanes are OOM-preempted and the pool
 # compacts
-ENGINE = dict(arch="yi-9b", slots=8, page_size=16, prompt_buckets=(128, 512),
-              prompt_len=512, max_new_tokens=64, pool_pages=160,
-              n_requests=24)
+# yi-9b at full width cut to ``layers`` of its 48, as the features,
+# disagg and cri phases cut it (its run (a) is their reference
+# transcript): the whole script passed 1000 s on a host whose host-bound
+# phases ran 25-45% slower than usual; the orch phase still serves the
+# engine at full depth
+ENGINE = dict(arch="yi-9b", layers=12, slots=8, page_size=16,
+              prompt_buckets=(128, 512), prompt_len=512, max_new_tokens=64,
+              pool_pages=160, n_requests=24)
 
 
 def engine_requests(vocab, n=ENGINE["n_requests"]):
@@ -1651,10 +1676,11 @@ def _depth_cut(arch, layers):
 
 def _reference_tokens(state, arch, device):
     """Run (a)'s tokens at ``arch``: the engine phase's own where ``arch``
-    is its model, else the 24 requests served once single-step through the
-    runtime (``_engine_served``), kept in ``state`` for the next phase at
-    the same cut.  Returns (tokens, where they come from)."""
-    if arch == ENGINE["arch"] and "engine_tokens" in state:
+    is its model at its depth, else the 24 requests served once
+    single-step through the runtime (``_engine_served``), kept in ``state``
+    for the next phase at the same cut.  Returns (tokens, where they come
+    from)."""
+    if arch == state.get("engine_arch") and "engine_tokens" in state:
         return state["engine_tokens"], "engine phase run (a)"
     refs = state.setdefault("reference_tokens", {})
     if arch not in refs:
@@ -1966,17 +1992,23 @@ def _engine_evicting(arch, device, logit_at=6, every=16):
 
 
 def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
-    """Full-width yi-9b (bf16, random weights from seed 0) served by the
+    """yi-9b at full width cut to ``ENGINE["layers"]`` of its 48 layers
+    (bf16, random weights from seed 0) served by the
     paged engine three ways: (a) single-step decode and (b) 8 steps fused
     per EXECUTE with one EXECUTE in flight, both through
     RequestRouter -> EngineServeTask -> FunkyRuntime; (c) run (a) on a
     monitor with evict/resume every 16 iterations (each resume copies the
-    17.9 GB of weights back).  Gates: every request
+    weights back, 5.26 GB at 12 layers).  Gates: every request
     completes with its token count, the three transcripts are identical,
     exact launch counts, at least one OOM preemption and one compaction,
     an evict that saves fewer pages than the pool, and the logits of a
     paged decode step and of each bucket's prefill (K2 at batch 1) on the
     kernel path within LOGIT_REL_TOL of the plain path's."""
+    with _depth_cut(arch, ENGINE["layers"]) as cut:
+        _engine_phase(state, cut, device)
+
+
+def _engine_phase(state, arch, device):
     a_tok, a = _engine_served(arch, device, 1, 0, "a")
     log(phase="engine", run="a_single_step", card=state.get("card"), **a)
     b_tok, b = _engine_served(arch, device, 8, 1, "b")
@@ -2010,7 +2042,7 @@ def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
                              f"{prefill_checks}")
     state.setdefault("launches", {})["engine"] = a["launches"]
     state["engine"] = {"a": a, "b": b, "c": c}
-    state["engine_tokens"] = a_tok
+    state["engine_tokens"], state["engine_arch"] = a_tok, arch
 
 
 # ---------------------------------------------------------------------------
@@ -4342,7 +4374,8 @@ def phase_dense_archs(state, device="cuda", cut=None):
 # 21. the MoE family
 # ---------------------------------------------------------------------------
 
-MOE = dict(key="deepseek_moe", arch=None, serve_prompt=None,
+# deepseek-moe-16b at full width and depth (``layers`` None: no cut)
+MOE = dict(key="deepseek_moe", arch=None, layers=None, serve_prompt=None,
            engine=dict(ENGINE, n_requests=8), logit_at=6, max_phase_s=150,
            max_peak_gb=45)
 
@@ -4469,8 +4502,9 @@ def phase_moe(state, device="cuda", cut=None):
     overrides ``MOE`` (``arch`` and ``serve_prompt`` replace the path's: a
     rehearsal on the CPU at smoke size)."""
     mc = dict(MOE, **(cut or {}))
-    _routed_phase(state, "moe", mc, mc["arch"] or PATHS[mc["key"]][0],
-                  device, time.perf_counter())
+    t_phase = time.perf_counter()
+    with _depth_cut(mc["arch"] or PATHS[mc["key"]][0], mc["layers"]) as arch:
+        _routed_phase(state, "moe", mc, arch, device, t_phase)
 
 
 def _routed_phase(state, phase, mc, arch, device, t_phase):
@@ -4797,6 +4831,294 @@ def phase_families(state, device="cuda", cut=None):
 
 
 # ---------------------------------------------------------------------------
+# 24. the launch layer
+# ---------------------------------------------------------------------------
+
+LAUNCH = dict(serve=dict(key="qwen3", layers=18, batch=8, prompt=512,
+                         tokens=64, tokens_per_step=8),
+              train=dict(arch="yi-9b", layers=8, seq=1024, batch=8, chunks=4,
+                         steps=4),
+              remats=("none", "full", "dots"), remat_microbatches=2,
+              remat_steps=2, max_phase_s=120.0, max_peak_gb=45.0)
+# (c) runs the train cut in 2 microbatches, not TRAIN's 4: at 4 the peak
+# of "full" and of "dots" is the accumulation's (the f32 accumulator and
+# a microbatch's gradients beside the state), the same for both
+# (``dryrun``'s meta estimate: 31.98 GB each, "none" 35.2), where at 2 the
+# saved activations set it (31.98 / 33.67 / 43.71 GB)
+REMAT_GRAD_NORM_REL_TOL = 1e-5
+
+
+def _launch_serve(sc, device, arch):
+    """(a): ``launch.serve.main`` at ``sc``, then a ``ServeTask`` on the
+    same image run directly on a ``FunkyRuntime``.  Returns the CLI's
+    record, its launches and the direct run's last tokens."""
+    from repro_torch.core import (FunkyRuntime, SliceAllocator, TaskStatus)
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--arch", arch, "--batch", str(sc["batch"]), "--prompt-len",
+            str(sc["prompt"]), "--tokens", str(sc["tokens"]),
+            "--tokens-per-step", str(sc["tokens_per_step"]), "--device",
+            device]
+    _zero_counts()
+    out = launch_serve.main(argv)
+    launches = _counts()
+    if device == "cuda":
+        _free_cuda()
+    image = launch_serve.image_of(launch_serve.parse_args(argv))
+    rt = FunkyRuntime("node0", SliceAllocator("node0", 1,
+                                              mem_cap_bytes=64 << 30,
+                                              device=device))
+    rt.create("direct", image)
+    rt.start("direct")
+    if rt.wait("direct", timeout=600) is not TaskStatus.DONE:
+        raise RuntimeError(f"launch: the direct ServeTask ended "
+                           f"{rt.tasks['direct'].status}: "
+                           f"{rt.tasks['direct'].error!r}")
+    direct = rt.tasks["direct"].guest_state.user["last_token"]
+    rt.delete("direct")
+    del rt
+    if device == "cuda":
+        _free_cuda()
+    return out, launches, direct
+
+
+def _saved_bytes(cell, params, batch, k):
+    """Bytes that autograd holds after the forward of the first of ``k``
+    microbatches of ``batch`` (what the backward will read), on the card:
+    allocated after the loss less allocated before."""
+    import torch
+
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    mb = tree_map(lambda x: x[:x.shape[0] // k], batch)
+    leaves, treedef = tree_flatten(params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        ps = [t.detach().requires_grad_(True) for t in leaves]
+        loss, _ = cell.bundle.loss_fn(tree_unflatten(treedef, ps), mb)
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - before
+    del loss, ps
+    return saved
+
+
+def _launch_remat(tc, lc, device, cfg):
+    """(c): ``build_cell`` train steps at the train cut, one remat after
+    another, each run's state freed before the next: each step's loss and
+    gradient norm, the run's peak and each step's seconds; then, on the
+    card, the bytes autograd holds after one microbatch's forward."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+
+    shape = ShapeConfig("launch_train", "train", tc["seq"], tc["batch"])
+    k = lc["remat_microbatches"]
+    runs = {}
+    for remat in lc["remats"]:
+        if device == "cuda":
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+        cell = build_cell(cfg, shape, remat=remat, num_microbatches=k)
+        args = cell.materialize(device, SEED)
+        losses, norms, secs = [], [], []
+        for _ in range(lc["remat_steps"]):
+            t = time.perf_counter()
+            params, opt, m = cell.fn(*args)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t)
+            args = (params, opt, args[2])
+        rec = {"loss": losses, "grad_norm": norms, "step_s": secs}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["saved_gb"] = _saved_bytes(cell, params, args[2], k) / 1e9
+        del cell, args, params, opt, m
+        runs[remat] = rec
+    return shape, runs
+
+
+def _launch_bounds(cfg_serve, cfg_train, sc, shape_train, runs, served):
+    """(d): ``roofline.analyze_cell``'s bounds for (a)'s prefill, (a)'s
+    decode step (caches of prompt + 128) and (c)'s "full" train step
+    beside the measured times, and ``dryrun``'s meta-device peak estimate
+    of each (c) run beside its measured peak."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+
+    cells = {
+        "a_prefill": (cfg_serve, ShapeConfig("launch_prefill", "prefill",
+                                             sc["prompt"], sc["batch"]),
+                      served["prefill_s"]),
+        "a_decode": (cfg_serve, ShapeConfig("launch_decode", "decode",
+                                            sc["prompt"] + 128, sc["batch"]),
+                     served["decode_step_s_median"]),
+        "c_train": (cfg_train, shape_train, runs["full"]["step_s"][-1]),
+    }
+    out = {}
+    for name, (cfg, shape, measured) in cells.items():
+        rec = roofline.analyze_cell(cfg, shape)
+        bound = rec["step_seconds_lower_bound"]
+        out[name] = {"bound_s": bound, "bottleneck": rec["bottleneck"],
+                     "compute_s": rec["compute_s"],
+                     "memory_s": rec["memory_s"],
+                     "required_flops": rec["required_flops"],
+                     "op_compute_s": rec["op_compute_s"],
+                     "op_flops": rec["op_flops_per_device"],
+                     "measured_s": measured,
+                     "measured_over_bound": measured / bound}
+    est = {}
+    for remat in runs:
+        r = dryrun.run_cell(cfg_train, shape_train, remat=remat,
+                            num_microbatches=LAUNCH["remat_microbatches"])
+        if r["status"] != "ok":
+            raise RuntimeError(f"launch: dryrun of {remat}: {r}")
+        est[remat] = {"meta_peak_gb": r["peak_bytes"] / 1e9,
+                      "meta_arg_gb": r["arg_bytes"] / 1e9,
+                      "measured_peak_gb": runs[remat].get("peak_gb")}
+    out["remat_peaks"] = est
+    return out
+
+
+def phase_launch(state, device="cuda", cut=None):
+    """The launch layer (``repro_torch.launch``), through the entry points
+    a user calls: (a) ``launch.serve.main`` serving full-width qwen3-8b cut
+    to 18 of its 36 layers (batch 8, prompt 512, 64 tokens at 8 a step)
+    through ``make_cluster`` -> ``FunkyRuntime`` -> ``ServeTask``: K2 once
+    a layer per prefill and K1 once a layer per token, exactly, and the
+    last tokens of a ``ServeTask`` on the same image run directly; (b)
+    ``launch.train.main`` native and through Funky (fig04's pair) at
+    ``TRAIN``'s cut (yi-9b at 8 of 48 layers, seq 1024, batch 8 in 4
+    chunks, 4 steps): equal final losses, bit for bit; (c) ``build_cell``
+    train steps at that cut with ``remat`` "none", "full" and "dots" (2
+    microbatches), each freed before the next, run before (b): first-step
+    losses equal to the bit, gradient norms within
+    ``REMAT_GRAD_NORM_REL_TOL``, the step's peaks and the bytes autograd
+    holds after a microbatch's forward each strictly ordered full < dots
+    < none; (d) ``roofline``'s bound for
+    (a)'s prefill, (a)'s decode step and (c)'s step beside the measured
+    times, and ``dryrun``'s meta-device peaks beside (c)'s (no gate).  The
+    phase holds under ``max_phase_s`` and ``max_peak_gb``.  ``cut``
+    overrides ``LAUNCH`` (``serve`` and ``train`` merge into theirs; an
+    ``arch`` in ``serve`` replaces the path's: a rehearsal on the CPU at
+    smoke size, where launches, peaks and the budget are not checked)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+
+    cut = dict(cut or {})
+    lc = dict(LAUNCH, **{k: v for k, v in cut.items()
+                         if k not in ("serve", "train")})
+    sc = dict(LAUNCH["serve"], **cut.get("serve", {}))
+    tc = dict(LAUNCH["train"], **cut.get("train", {}))
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    peaks = []
+
+    def peak():
+        if device == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+
+    out = {}
+    # (a) serve: launch.serve.main, then the same image directly
+    path_arch, _, per_prefill, per_token = PATHS[sc["key"]]
+    with _depth_cut(sc.get("arch") or path_arch, sc["layers"]) as arch:
+        cfg_serve = get_arch(arch)
+        full = get_arch(path_arch).num_layers
+        served, launches, direct = _launch_serve(sc, device, arch)
+        peak()
+    n_tok = served["new_tokens"]
+    expected = {k: (per_prefill.get(k, 0) + n_tok * per_token.get(k, 0))
+                * cfg_serve.num_layers // full for k in _counts()}
+    out["a"] = {**served, "layers": cfg_serve.num_layers,
+                "layers_of": full, "launches": launches,
+                "expected_launches": expected,
+                "direct_last_token": direct,
+                "equal_to_direct": served["last_token"] == direct}
+    state.setdefault("launches", {})["launch"] = launches
+    log(phase="launch", run="a", card=state.get("card"), **out["a"])
+    if device == "cuda" and launches != expected:
+        raise AssertionError(f"launch: (a) launches {launches}, expected "
+                             f"{expected}")
+    if not out["a"]["equal_to_direct"]:
+        raise AssertionError(f"launch: (a)'s last tokens {served['last_token']}"
+                             f" differ from a direct ServeTask's {direct}")
+
+    with _depth_cut(tc["arch"], tc["layers"]) as arch:
+        cfg_train = get_arch(arch)
+        # (c) build_cell with each remat; it runs before (b), so that the
+        # pair runs warm: on a card that has not trained yet in the
+        # process, the first steps take seconds more (PERF.md §6)
+        shape_train, runs = _launch_remat(tc, lc, device, cfg_train)
+        if device == "cuda":
+            peaks.extend(r["peak_gb"] for r in runs.values())
+            _free_cuda()
+        out["c"] = runs
+        log(phase="launch", run="c", card=state.get("card"), **runs)
+        first = [r["loss"][0] for r in runs.values()]
+        norms = [r["grad_norm"][0] for r in runs.values()]
+        if len(set(first)) != 1:
+            raise AssertionError(f"launch: (c) first-step losses differ by "
+                                 f"remat: {first}")
+        if max(norms) - min(norms) > REMAT_GRAD_NORM_REL_TOL * max(norms):
+            raise AssertionError(f"launch: (c) gradient norms {norms}")
+        for key in ("peak_gb", "saved_gb") if device == "cuda" else ():
+            if not (runs["full"][key] < runs["dots"][key]
+                    < runs["none"][key]):
+                raise AssertionError(
+                    f"launch: (c) {key} not full < dots < none: "
+                    f"{[r[key] for r in runs.values()]}")
+
+        # (b) fig04's pair through launch.train.main
+        argv = ["--arch", arch, "--seq", str(tc["seq"]), "--batch",
+                str(tc["batch"]), "--chunks", str(tc["chunks"]), "--steps",
+                str(tc["steps"]), "--seed", str(SEED), "--device", device]
+        native = launch_train.main(argv + ["--native"])
+        peak()
+        if device == "cuda":
+            _free_cuda()
+        funky = launch_train.main(argv)
+        peak()
+        if device == "cuda":
+            _free_cuda()
+        out["b"] = {"arch": arch, "native": native, "funky": funky,
+                    "equal": native["final_loss"] == funky["final_loss"],
+                    "overhead": funky["seconds"] / native["seconds"] - 1,
+                    "train_phase_overhead": state.get("train", {}).get(
+                        "b", {}).get("overhead"),
+                    "paper_overhead_alveo_u50": PAPER_VIRT_OVERHEAD}
+        log(phase="launch", run="b", card=state.get("card"), **out["b"])
+        if not out["b"]["equal"]:
+            raise AssertionError(f"launch: (b) native final loss "
+                                 f"{native['final_loss']!r} != Funky's "
+                                 f"{funky['final_loss']!r}")
+
+        # (d) the roofline and the dry run beside the card
+        out["d"] = _launch_bounds(cfg_serve, cfg_train, sc, shape_train,
+                                  runs, served)
+        log(phase="launch", run="d", card=state.get("card"), **out["d"])
+
+    stats = {"phase_s": time.perf_counter() - t_phase}
+    if device == "cuda":
+        stats["peak_gb"] = max(peaks)
+    log(phase="launch", card=state.get("card"), summary=stats)
+    state["launch"] = {**out, **stats}
+    if device != "cuda":
+        return
+    if stats["peak_gb"] > lc["max_peak_gb"]:
+        raise AssertionError(f"launch: peak {stats['peak_gb']:.2f} GB, over "
+                             f"{lc['max_peak_gb']} GB")
+    if stats["phase_s"] > lc["max_phase_s"]:
+        raise AssertionError(f"launch: the phase took {stats['phase_s']:.1f}"
+                             f" s, over {lc['max_phase_s']} s")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -4913,6 +5235,13 @@ def kernel_line(state):
                 "library_ms": r.get("library_device_ms"),
                 **({"library_gathered_ms": r["library_gathered_device_ms"]}
                    if "library_gathered_device_ms" in r else {})})
+    # the launch phase's served run (launch.serve.main) is qwen3-8b's path
+    # at 18 of its 36 layers: K2 and K1 at the qwen3 rows' shapes
+    for row in rows:
+        if row["name"] in ("flash_attention (qwen3-8b: qwen3_path)",
+                           "decode_attention (qwen3-8b: qwen3_path)"):
+            row["launches_launch"] = state["launches"]["launch"][
+                "K2" if row["name"].startswith("flash") else "K1"]
     # the families phase's shapes (bf16), each with its launches on the
     # served run, counted by shape: seamless-m4t-large-v2's K2 over the
     # encoder, the decoder's prefill and the cross attention, and K1 over

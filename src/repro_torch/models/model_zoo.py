@@ -12,6 +12,10 @@ moe with GQA or MLA, ssm, hybrid and the encoder-decoder (``encdec.py``).
                     rows=16)                 -> (logits, pool)
     cache_specs(batch, max_len)              -> caches as meta tensors
 
+``input_specs(cfg, shape)`` returns meta-tensor stand-ins for every input
+of an (arch x shape) cell, as the reference's does; the launch layer
+(``launch/steps.py``) and its meta-device dry run build on it.
+
 ``decode_paged_fn`` is the serving engine's decode: every lane at its own
 position over the paged KV pool (attention plans: K1's paged entry; MLA
 plans: plain tensor code over latent pages).  The encoder-decoder has none
@@ -38,9 +42,12 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as _ed
 from repro_torch.models import transformer as _tf
+from repro_torch.models.layers import cdtype
 from repro_torch.tree import tree_leaves
 
 
@@ -96,6 +103,72 @@ def _no_paged_decode(cfg: ModelConfig, *args, **kwargs):
         "prefill_fn/decode_fn")
 
 
-def analytic_param_count(cfg: ModelConfig) -> int:
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors) per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input of an (arch x shape)
+    cell, as the reference's ``input_specs``:
+
+    train   -> {"batch": {...}}
+    prefill -> {"batch": {...}}
+    decode  -> {"token", "pos", "caches"}
+    """
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def tok(*s):
+        return torch.empty(s, dtype=torch.int32, device=meta)
+
+    def emb(*s):
+        return torch.empty(s, dtype=cdtype(cfg), device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        train = shape.kind == "train"
+        if cfg.family == "encdec":
+            T = int(S * cfg.tgt_ratio)
+            batch = {"src_emb": emb(B, S, cfg.d_model), "tgt_tokens": tok(B, T)}
+            if train:
+                batch["tgt_targets"] = tok(B, T)
+        elif cfg.family == "vlm":
+            Stext = S - cfg.num_image_tokens
+            batch = {"tokens": tok(B, Stext)}
+            if train:
+                batch["targets"] = tok(B, Stext)
+            batch["img_emb"] = emb(B, cfg.num_image_tokens, cfg.d_model)
+        else:
+            batch = {"tokens": tok(B, S)}
+            if train:
+                batch["targets"] = tok(B, S)
+        return {"batch": batch}
+
+    # decode: one new token against caches of capacity seq_len
+    caches = (_ed.encdec_cache_specs(cfg, B, S, S) if cfg.family == "encdec"
+              else _tf.lm_cache_specs(cfg, B, S))
+    return {"token": tok(B), "pos": tok(), "caches": caches}
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter counts (exact: from the parameters on the meta device)
+# ---------------------------------------------------------------------------
+
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``; ``active_only`` counts a token's: an MoE
+    layer's routed experts beyond its top-k are left out."""
     params = build_model(cfg).init(0, device="meta")
-    return sum(t.numel() for t in tree_leaves(params))
+    total = sum(t.numel() for t in tree_leaves(params))
+    if active_only and cfg.moe.enabled:
+        n_moe_layers = cfg.num_layers - cfg.moe.n_dense_layers
+        inactive = cfg.moe.num_experts - cfg.moe.top_k
+        per_expert = 3 * cfg.d_model * cfg.moe.d_ff
+        total -= n_moe_layers * inactive * per_expert
+    return total
+
+
+def embedding_param_count(cfg: ModelConfig) -> int:
+    """The embedding table's parameters, twice where the head is untied."""
+    n = cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        n *= 2
+    return n

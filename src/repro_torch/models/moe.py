@@ -150,5 +150,10 @@ def moe_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         return out, None
     # aux load-balancing loss: f counts every routed pair, dropped ones
     # too; p_mean is over the tokens (the lanes, with ``live``)
-    f = torch.bincount(flat_e[:n * k], minlength=E).float() / (n * k)
+    # (a count by scatter_add_, exact in int64, where ``bincount`` has no
+    # meta kernel: the meta-device dry run runs this step)
+    ids = flat_e[:n * k]
+    counts = torch.zeros(E, dtype=torch.long, device=x.device)
+    counts.scatter_add_(0, ids, torch.ones_like(ids))
+    f = counts.float() / (n * k)
     return out, E * torch.sum(f * probs[:n].mean(0))

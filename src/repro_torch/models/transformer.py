@@ -22,7 +22,8 @@ and caches are views into the stacked tensors, so decode's in-place cache
 writes (attention ring, SSM state, RG-LRU state, conv windows) land in the
 stacked cache.  Training (``mode="train"``, ``lm_loss``) runs the plain
 forwards under autograd, each repetition optionally rematerialised in the
-backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant),
+backward (``remat="full"``: ``torch.utils.checkpoint``, non-reentrant;
+``"dots"``: the same, keeping the weight projections' outputs),
 and sums the MoE blocks' aux losses into ``lm_loss``'s total.
 ``lm_decode_paged`` is the serving engine's decode over the paged pool
 (attention and MLA plans), one step for every lane at its own position.
@@ -236,18 +237,51 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
+# The reference's ``remat="dots"`` saves the outputs of the
+# ``dot_general``s that have no batch dimensions
+# (``dots_with_no_batch_dims_saveable``): the weight projections.  The port
+# writes every such product as ``x @ w`` (or ``F.linear``) on a 2-D
+# weight, which folds x's leading dimensions into one and dispatches
+# ``aten.mm`` (``aten.addmm`` with a bias), on the CPU and on the card
+# alike.  A product over a batch or expert axis (attention's scores and
+# values, an einsum, the MoE experts, the RG-LRU's block-diagonal gates)
+# dispatches ``aten.bmm``: it has batch dimensions and is recomputed, as
+# everything else is.
+_NO_BATCH_DIM_DOTS = frozenset({torch.ops.aten.mm.default,
+                                torch.ops.aten.addmm.default})
+
+
+def dots_policy(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: save the output of
+    a matrix product without batch dimensions, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if func in _NO_BATCH_DIM_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def _maybe_remat(fn, remat: str):
     """``remat`` of the reference: "none" keeps every activation for the
     backward, "full" keeps only each repetition's inputs and recomputes
-    the rest (non-reentrant ``torch.utils.checkpoint``)."""
+    the rest (non-reentrant ``torch.utils.checkpoint``), "dots" keeps the
+    inputs and the outputs of the products without batch dimensions
+    (``dots_policy``) and recomputes the rest."""
     if remat == "none":
         return fn
-    if remat == "full":
-        from torch.utils.checkpoint import checkpoint
+    from torch.utils.checkpoint import checkpoint
 
+    if remat == "full":
         return lambda *a: checkpoint(fn, *a, use_reentrant=False)
     if remat == "dots":
-        raise NotImplementedError("remat 'dots' is not ported yet")
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
     raise ValueError(f"unknown remat {remat!r}")
 
 

@@ -98,7 +98,10 @@ def make_train_step(bundle: ModelBundle, opt_cfg: OptConfig,
                     num_microbatches: int = 1,
                     accum_dtype: str = "float32") -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics), updating params and opt_state in place."""
+    metrics), updating params and opt_state in place.  Over several
+    microbatches ``metrics["loss"]`` is their mean and
+    ``metrics["last_loss"]`` the last one's, the loss the chunked programs'
+    last ``grad_step`` returns (``TrainTask``'s ``final_loss``)."""
     vg = value_and_grad(bundle)
     adt = _ACCUM[accum_dtype]
 
@@ -118,8 +121,9 @@ def make_train_step(bundle: ModelBundle, opt_cfg: OptConfig,
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             grads = _average(opt_cfg, acc, num_microbatches)
             del acc
-            loss = loss_sum / num_microbatches
-            metrics = {"loss": loss, "aux_loss": torch.zeros_like(loss)}
+            metrics = {"loss": loss_sum / num_microbatches,
+                       "aux_loss": torch.zeros_like(loss),
+                       "last_loss": loss}
         params, opt_state, stats = apply_updates(opt_cfg, params, grads,
                                                  opt_state)
         metrics.update(stats)

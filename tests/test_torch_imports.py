@@ -4,8 +4,11 @@
 reference package; ``chip_smoke.py`` and ``train_memory.py`` import
 neither.  Nothing picks the CPU on its own: a CUDA request on a host
 without a card raises, and a missing ``nvcc`` is an error, never a
-fallback.  ``chip_smoke.py``'s ``disagg``, ``dense_archs``, ``moe`` and
-``mla`` phases rehearse on the CPU at smoke size.
+fallback.  ``chip_smoke.py``'s ``disagg``, ``dense_archs``, ``moe``, ``mla``,
+``families`` and ``launch`` phases rehearse on the CPU at smoke size.
+No module sets an environment variable when it is imported (the
+reference's ``launch/roofline.py`` and ``launch/dryrun.py`` set
+``XLA_FLAGS``; the port's do not).
 """
 
 import ast
@@ -21,8 +24,9 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 
 _HYGIENE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None
+env = dict(os.environ)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -31,6 +35,7 @@ for n in names:
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "jax" not in sys.modules or sys.modules["jax"] is None
+assert dict(os.environ) == env, "a module set an environment variable"
 print(" ".join(names))
 """
 
@@ -49,7 +54,11 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.models.attention", "repro_torch.serve.kvcache",
              "repro_torch.models.encdec",
              "repro_torch.configs.seamless_m4t_large_v2",
-             "repro_torch.configs.llava_next_mistral_7b"}
+             "repro_torch.configs.llava_next_mistral_7b",
+             "repro_torch.launch", "repro_torch.launch.steps",
+             "repro_torch.launch.op_stats", "repro_torch.launch.roofline",
+             "repro_torch.launch.dryrun", "repro_torch.launch.serve",
+             "repro_torch.launch.train"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -117,6 +126,16 @@ def test_cuda_requests_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError):           # training too
         make_train_state(build_model(get_arch("yi-9b-smoke")), OptConfig(),
                          0)
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import build_cell
+
+    with pytest.raises(RuntimeError):           # and the launch layer
+        build_cell(get_arch("yi-9b-smoke"), SHAPES["train_4k"]).materialize()
+    with pytest.raises(RuntimeError):
+        serve.main(["--arch", "yi-9b-smoke", "--tokens", "4"])
+    with pytest.raises(RuntimeError):
+        train.main(["--arch", "yi-9b-smoke", "--steps", "1", "--native"])
 
 
 def test_explicit_cpu_and_meta_devices():
@@ -288,3 +307,34 @@ def test_chip_smoke_families_phase_rehearses_on_the_cpu():
         assert not any(rec["served"]["launches"].values())
     assert set(s["served"]["launches_by_case"]["K2"]) == {
         "enc", "dec_prefill", "cross"}
+
+
+def test_chip_smoke_launch_phase_rehearses_on_the_cpu():
+    """The ``launch`` phase's code path on the smoke archs on the CPU:
+    ``launch.serve.main`` against a direct ``ServeTask``, the three remat
+    runs of ``build_cell`` (equal losses and gradient norms), fig04's pair
+    through ``launch.train.main`` (equal final losses), the roofline and
+    the dry run beside them (launch counts, peaks and the budget only on
+    the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.PEAK_BYTES_S == 3.35e12
+    assert chip_smoke.PEAK_FLOP_S == {"bfloat16": 989e12, "float32": 67e12}
+    state = {}
+    chip_smoke.phase_launch(state, device="cpu", cut=dict(
+        serve=dict(arch="qwen3-8b-smoke", layers=None, batch=2, prompt=16,
+                   tokens=8, tokens_per_step=4),
+        train=dict(arch="yi-9b-smoke", layers=None, seq=16, batch=4,
+                   chunks=2, steps=2)))
+    d = state["launch"]
+    assert d["a"]["equal_to_direct"] and d["a"]["new_tokens"] == 8
+    assert d["b"]["equal"]
+    assert set(d["c"]) == {"none", "full", "dots"}
+    assert len({r["loss"][0] for r in d["c"].values()}) == 1
+    for cell in ("a_prefill", "a_decode", "c_train"):
+        assert d["d"][cell]["bound_s"] > 0
+    assert set(d["d"]["remat_peaks"]) == {"none", "full", "dots"}
+    assert not any(state["launches"]["launch"].values())

@@ -146,20 +146,21 @@ def test_chunked_fns_match_fused_step():
 
 
 def test_remat_full_matches_none():
-    """``remat="full"`` recomputes each repetition in the backward: the same
+    """``remat="full"`` recomputes each repetition in the backward, and
+    ``"dots"`` all but its products without batch dimensions: the same
     loss, and gradients within 1e-6 of the largest (the recomputation
-    sums in another order); ``"dots"`` is not ported."""
+    sums in another order)."""
     cfg = dataclasses.replace(get_arch("recurrentgemma-9b-smoke"),
                               dtype="float32")
     params = build_model(cfg).init(0, device="cpu")
     batch = make_batch(cfg, SHAPE, 0)
     g0, l0, _ = value_and_grad(build_model(cfg))(params, batch)
-    g1, l1, _ = value_and_grad(build_model(cfg, remat="full"))(params, batch)
-    assert float(l0) == float(l1)
-    for a, c in zip(tree_leaves(g0), tree_leaves(g1)):
-        assert (a - c).abs().max() <= 1e-6 * max(a.abs().max(), 1e-30)
-    with pytest.raises(NotImplementedError):
-        value_and_grad(build_model(cfg, remat="dots"))(params, batch)
+    for remat in ("full", "dots"):
+        g1, l1, _ = value_and_grad(build_model(cfg, remat=remat))(params,
+                                                                  batch)
+        assert float(l0) == float(l1)
+        for a, c in zip(tree_leaves(g0), tree_leaves(g1)):
+            assert (a - c).abs().max() <= 1e-6 * max(a.abs().max(), 1e-30)
 
 
 def test_training_refuses_the_kernels():
