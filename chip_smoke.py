@@ -128,7 +128,7 @@ caught):
    kernel launched; under 150 s and 45 GB;
 20. the remaining dense archs (``phase_dense_archs``, budget 200 s,
    gated): qwen3-8b, stablelm-3b and starcoder2-15b at full width cut to
-   half their depth, one after another: (a) served through the runtime
+   a quarter of their depth, one after another: (a) served through the runtime
    (batch 8, prompt 512, 32 tokens; K2 L per prefill, K1 L per token),
    (b) kernel path against plain path, (c) the engine phase's
    configuration on its
@@ -137,12 +137,13 @@ caught):
    K1 paged L per decode step, dense K1 never), then a paged decode
    step's and each bucket's prefill's logits within LOGIT_REL_TOL;
 21. the MoE family (``phase_moe``, budget 150 s and 45 GB peak, both
-   gated): deepseek-moe-16b at full width and depth (28 layers: one dense,
-   27 of 64 routed experts top-6 and 2 shared; MHA 16/16 heads of 128),
+   gated): deepseek-moe-16b at full width cut to half its depth (14 of
+   28 layers: one dense, 13 of 64 routed experts top-6 and 2 shared; MHA
+   16/16 heads of 128),
    the dense_archs phase's steps (a)-(d) for one arch: served through the
-   runtime (K2 28 per prefill, K1 28 per token), kernel path against plain
-   path, the engine on 8 requests single-step and fused (K2 28 per
-   admission, K1 paged 28 per decode step), the paged decode step's and
+   runtime (K2 14 per prefill, K1 14 per token), kernel path against plain
+   path, the engine on 8 requests single-step and fused (K2 14 per
+   admission, K1 paged 14 per decode step), the paged decode step's and
    each bucket's prefill's logits; in the logit checks the plain path
    takes the kernel path's MoE routing, and the rows its own router
    would have routed otherwise are logged (a near-tie of the top-k flips
@@ -183,7 +184,18 @@ caught):
    Funky (4 steps of 4 chunks): equal final losses, bit for bit, and the
    overhead; (d) ``launch.roofline``'s bound beside (a)'s prefill, (a)'s
    decode step and (c)'s step, ``launch.dryrun``'s meta-device peak
-   beside (c)'s measured ones.
+   beside (c)'s measured ones;
+25. the multi-device layer (``phase_mesh``, budget 60 s and 45 GB peak,
+   both gated) on a one-rank NCCL group (a ``HashStore``, no network) and
+   a (1, 1) ``("data", "model")`` mesh: (a) ``build_cell`` train steps at
+   the train phase's cut under "tp", "fsdp_tp" and "fsdp", each equal to
+   the mesh-less step to the bit (loss and updated parameters); (b) a
+   format-v2 snapshot of yi-9b at 12 of 48 layers restored onto the mesh
+   by ``reshard_snapshot_buffers``, then the prefill and decode cells on
+   the mesh (batch 8, prompt 512, 32 greedy tokens; K2 and K1 inside
+   ``shard_map``): the mesh-less cells' tokens and exact launches; (c)
+   one deepseek-moe-16b block's ``moe_fwd`` under "local" and "a2a"
+   equal to the mesh-less dispatch to the bit.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -254,7 +266,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
           "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla",
-          "families", "launch")
+          "families", "launch", "mesh")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -282,6 +294,9 @@ PATHS = {
     # llava-next-mistral-7b (2880 image + 192 text positions)
     "seamless": ("seamless-m4t-large-v2", 1024, {"K2": 72}, {"K1": 48}),
     "llava": ("llava-next-mistral-7b", 3072, {"K2": 32}, {"K1": 32}),
+    # the mesh phase: yi-9b's prefill and decode cells on a one-rank mesh
+    # (cut to 12 of 48 layers), K2 and K1 in shard_map on local shards
+    "mesh": ("yi-9b", 512, {"K2": 48}, {"K1": 48}),
 }
 
 
@@ -4198,11 +4213,11 @@ def _train_card_vs_cpu(tc, base, device, names):
 # RequestRouter -> EngineServeTask, single-step and 8 fused with one
 # EXECUTE ahead, then on a monitor to iteration ``logit_at`` for the logit
 # checks.  Cut: 8 of the 24 requests, no evict/resume run.
-# each arch at full width cut to half its depth (``_depth_cut``), which
-# keeps the whole script near 830 s on an H100 with the families phase
-# (at full depth the phase took 84.2 s of a 908 s script)
+# each arch at full width cut to a quarter of its depth (``_depth_cut``):
+# the mesh phase's ~45 s are paid by this cut and moe's (at full depth
+# the phase took 84.2 s of a 908 s script, at half depth 48.0-57.0 s)
 DENSE_ARCHS = dict(keys=("qwen3", "stablelm", "starcoder2"), archs=None,
-                   layers={"qwen3": 18, "stablelm": 16, "starcoder2": 20},
+                   layers={"qwen3": 9, "stablelm": 8, "starcoder2": 10},
                    serve_prompt=None, engine=dict(ENGINE, n_requests=8),
                    logit_at=6, max_phase_s=200)
 
@@ -4327,8 +4342,8 @@ def _logit_gate(rec, ec):
 def phase_dense_archs(state, device="cuda", cut=None):
     """qwen3-8b (qk-norm), stablelm-3b (LayerNorm, rotary on a quarter of
     hd 80, MHA) and starcoder2-15b (LayerNorm, GELU, group 12) at full
-    width cut to half their depth (``layers``: 18 of 36, 16 of 32, 20 of
-    40), one after another, each freed before the next (``_arch_run``):
+    width cut to a quarter of their depth (``layers``: 9 of 36, 8 of 32,
+    10 of 40), one after another, each freed before the next (``_arch_run``):
     (a) served through the runtime with exact launch counts (``PATHS``),
     (b) kernel path against plain path within LOGIT_REL_TOL, (c) the engine
     path of ``DENSE_ARCHS`` (single-step and fused transcripts identical;
@@ -4375,7 +4390,9 @@ def phase_dense_archs(state, device="cuda", cut=None):
 # ---------------------------------------------------------------------------
 
 # deepseek-moe-16b at full width and depth (``layers`` None: no cut)
-MOE = dict(key="deepseek_moe", arch=None, layers=None, serve_prompt=None,
+# full width at half depth (14 of 28 layers), a cut that pays with
+# dense_archs' for the mesh phase (42.7 s at full depth, call 114)
+MOE = dict(key="deepseek_moe", arch=None, layers=14, serve_prompt=None,
            engine=dict(ENGINE, n_requests=8), logit_at=6, max_phase_s=150,
            max_peak_gb=45)
 
@@ -4485,12 +4502,12 @@ def _expert_path(cfg, live, reps=10):
 
 
 def phase_moe(state, device="cuda", cut=None):
-    """deepseek-moe-16b at full width and depth (28 layers, 64 routed
-    experts top-6 and 2 shared, MHA 16/16 heads of 128; 16.4 B parameters):
+    """deepseek-moe-16b at full width cut to half its depth (14 of 28
+    layers, 64 routed experts top-6 and 2 shared, MHA 16/16 heads of 128):
     (a) served through the runtime with exact launch counts (``PATHS``),
     (b) kernel path against plain path within LOGIT_REL_TOL, (c) the
     engine path of ``MOE`` (single-step and fused transcripts identical;
-    K2 28 per admission, K1 paged 28 per decode step, dense K1 never),
+    K2 L per admission, K1 paged L per decode step, dense K1 never),
     (d) a paged decode step's and each bucket's prefill's logits within
     LOGIT_REL_TOL.  In (b) and (d) the plain path takes the kernel path's
     routing (``_routing_pin``), and the log counts the rows whose top-k
@@ -5118,6 +5135,442 @@ def phase_launch(state, device="cuda", cut=None):
                              f" s, over {lc['max_phase_s']} s")
 
 
+MESH = dict(train=dict(arch="yi-9b", layers=8, seq=1024, batch=8, chunks=2),
+            serve=dict(key="mesh", arch=None, layers=12, batch=8,
+                       prompt=512, tokens=32),
+            moe=dict(arch="deepseek-moe-16b", batch=8, seq=512),
+            policies=("tp", "fsdp_tp", "fsdp"), max_phase_s=60.0,
+            max_peak_gb=45.0)
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(device):
+    """A process group of one rank (NCCL on the card, gloo on the CPU; a
+    ``HashStore``, no network) and a (1, 1) ``("data", "model")`` mesh on
+    it; the group is destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _full(t):
+    """A DTensor's global value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _max_diff(a, b):
+    """(bitwise equal, largest |a - b|) over two trees of tensors, leaf by
+    leaf on ``a``'s device (a leaf of ``b`` is copied there)."""
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    same, diff = len(la) == len(lb), 0.0
+    for x, y in zip(la, lb):
+        x = _full(x)
+        y = y.to(x.device)
+        if not _equal(x, y):
+            same = False
+            diff = max(diff, float((x.float() - y.float()).abs().max()))
+    return same, diff
+
+
+def _equal(x, y):
+    """Equal shapes, dtypes and bits."""
+    import torch
+
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and bool(torch.equal(x, y)))
+
+
+def _mesh_train(tc, policies, device, mesh):
+    """(a): ``build_cell`` train steps at ``tc``'s cut, without a mesh and
+    on ``mesh`` under each policy, from the same seed: each step's loss
+    and updated parameters against the mesh-less step's, and whether the
+    parameters kept the rules' placements."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {}
+    shape = ShapeConfig("mesh_train", "train", tc["seq"], tc["batch"])
+    with _depth_cut(tc["arch"], tc["layers"]) as arch:
+        cfg = get_arch(arch)
+        cell = build_cell(cfg, shape, num_microbatches=tc["chunks"])
+        t = time.perf_counter()
+        params, opt, m = cell.fn(*cell.materialize(device, SEED))
+        del opt
+        ref_loss = float(m["loss"])
+        out["mesh_less"] = {"loss": ref_loss,
+                            "step_s": time.perf_counter() - t,
+                            **_stage_peak(device)}
+        # the updated parameters wait on the host (the card holds one
+        # training state at a time)
+        params = tree_map(lambda x: x.cpu(), params)
+        del cell, m
+        for policy in policies:
+            if device == "cuda":
+                _free_cuda()
+            t = time.perf_counter()
+            cell = build_cell(cfg, shape, mesh, policy=policy,
+                              num_microbatches=tc["chunks"])
+            args = cell.materialize(device, SEED)
+            want = [a.placements for a in tree_leaves(args[0])]
+            p2, opt, m2 = cell.fn(*args)
+            del args, opt
+            loss = float(_full(m2["loss"]))
+            step_s = time.perf_counter() - t
+            peak = _stage_peak(device)
+            placed = want == [a.placements for a in tree_leaves(p2)]
+            same, diff = _max_diff(p2, params)
+            out[policy] = {
+                "loss": loss, "loss_mesh_less": ref_loss,
+                "loss_equal": loss == ref_loss, "params_equal": same,
+                "params_max_abs_diff": diff, "placements_kept": placed,
+                "step_s": step_s, **peak}
+            del cell, p2, m2
+    return out
+
+
+def _stage_peak(device) -> dict:
+    """The card's peak since the last call, in GB (reset after)."""
+    import torch
+
+    if device != "cuda":
+        return {}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return {"peak_gb": peak}
+
+
+def _greedy(prefill, decode, params, tokens, n, lay_token=None):
+    """Greedy decoding: the prefill's next token, then ``n`` decode steps
+    (each writes its token's k/v and gives the next).  Returns the
+    (B, n + 1) tokens."""
+    import torch
+
+    logits, caches = prefill(params, {"tokens": tokens})
+    pos = tokens.shape[1]
+    out = [_full(logits).argmax(-1)]
+    for i in range(n):
+        tok = out[-1] if lay_token is None else lay_token(out[-1])
+        logits, caches = decode(params, tok,
+                                torch.tensor(pos + i, dtype=torch.int32,
+                                             device=out[-1].device), caches)
+        out.append(_full(logits).argmax(-1))
+    return torch.stack(out, dim=1)
+
+
+def _mesh_snapshot(sc, device, root):
+    """(b)'s snapshot, begun before (a): the parameters of ``sc``'s cut of
+    yi-9b from ``SEED``, copied to the host, saved as a format-v2
+    snapshot under ``root`` (with its digests) and loaded back on a
+    thread of its own, whose I/O overlaps (a), (b)'s mesh-less run and
+    (c).  The load skips re-hashing the files: (b) holds what it
+    restores to the saved tree itself, bit for bit.  Returns (the cut's
+    config, the thread, the record the thread fills: ``host`` (the saved
+    tree), ``save`` (the saver's stats), ``snapshot`` (the loaded one),
+    ``save_load_s``)."""
+    from repro_torch.ckpt import load_snapshot, save_snapshot
+    from repro_torch.configs import get_arch
+    from repro_torch.core.state import GuestState, TaskSnapshot
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.tree import tree_map
+
+    with _depth_cut(sc["arch"] or PATHS[sc["key"]][0], sc["layers"]) as arch:
+        cfg = get_arch(arch)
+    rec = {"host": tree_map(lambda x: x.cpu(),
+                            build_model(cfg).init(SEED, device=device))}
+    snap_dir = str(Path(root) / "mesh-snapshot")
+
+    def save_then_load():
+        t = time.perf_counter()
+        rec["save"] = save_snapshot(snap_dir, TaskSnapshot(
+            task_id="mesh", guest_state=GuestState(),
+            buffers={"params": rec["host"]}, versions={"params": 1}))
+        rec["snapshot"], _ = load_snapshot(snap_dir, verify=False)
+        rec["save_load_s"] = time.perf_counter() - t
+
+    return cfg, _Background(save_then_load), rec
+
+
+class _Background:
+    """``fn()`` on a thread of its own; ``wait()`` joins it and re-raises
+    what it raised."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.error = None
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised in wait
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def wait(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def _mesh_cells(sc, cfg, mesh=None, policy=None):
+    """(b)'s prefill and decode cells (K2 and K1), on ``mesh`` if given."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+
+    kw = dict(prefill_impl="kernel", decode_impl="kernel")
+    if mesh is not None:
+        kw.update(policy=policy)
+    return {k: build_cell(cfg, ShapeConfig(f"mesh_{k}", k, sc["prompt"],
+                                           sc["batch"]), mesh, **kw)
+            for k in ("prefill", "decode")}
+
+
+def _mesh_prompt(sc, cfg, device):
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    return torch.randint(0, cfg.vocab_size, (sc["batch"], sc["prompt"]),
+                         generator=gen, dtype=torch.int32).to(device)
+
+
+def _mesh_serve_plain(sc, device, snapshot):
+    """(b)'s reference: greedy decoding through the mesh-less cells on
+    the parameters the snapshot holds, while its I/O runs.  Returns (the
+    tokens, their launches)."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    cfg, _, saved = snapshot
+    plain = tree_map(lambda x: x.to(device), saved["host"])
+    cells = _mesh_cells(sc, cfg)
+    with torch.no_grad():
+        _zero_counts()
+        want = _greedy(cells["prefill"].fn, cells["decode"].fn, plain,
+                       _mesh_prompt(sc, cfg, device), sc["tokens"])
+        launches = _counts()
+    del plain, cells
+    return want, launches
+
+
+def _mesh_serve(sc, policy, device, mesh, snapshot, reference):
+    """(b): the format-v2 snapshot of ``_mesh_snapshot``, once loaded,
+    restored onto ``mesh`` through ``reshard_snapshot_buffers`` (every
+    ``full_tensor()`` equal to the saved tree), then greedy decoding
+    through the prefill and decode cells on the mesh (K2 and K1 on each
+    rank's local shards) against ``reference``, the mesh-less cells' run
+    on the same parameters (``_mesh_serve_plain``)."""
+    import torch
+
+    from repro_torch.ckpt import reshard_snapshot_buffers
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _laid_out
+
+    path_arch = PATHS[sc["key"]][0]
+    cfg, job, saved = snapshot
+    want, rec = reference[0], {"launches_mesh_less": reference[1]}
+    cells = _mesh_cells(sc, cfg, mesh, policy)
+    t = time.perf_counter()
+    job.wait()
+    snap = saved.pop("snapshot")
+    rec["snapshot"] = {"bytes": saved["save"]["written_bytes"],
+                       "save_s": saved["save"]["seconds"],
+                       "save_load_s": saved["save_load_s"],
+                       "wait_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    on_mesh = reshard_snapshot_buffers(cfg, snap.buffers, mesh,
+                                       policy)["params"]
+    rec["restore_s"] = time.perf_counter() - t
+    del snap
+    rec["restored_equal"] = _max_diff(on_mesh, saved.pop("host"))[0]
+    tok_sh = cells["decode"].in_placements[1]
+    batch = _laid_out({"tokens": _mesh_prompt(sc, cfg, device)},
+                      cells["prefill"].in_placements[1])
+    with torch.no_grad():
+        _zero_counts()
+        t = time.perf_counter()
+        got = _greedy(cells["prefill"].fn, cells["decode"].fn, on_mesh,
+                      batch["tokens"], sc["tokens"],
+                      lay_token=lambda x: _laid_out(x, tok_sh))
+        rec["launches"] = _counts()
+        rec["serve_s"] = time.perf_counter() - t
+    rec.update(arch=cfg.name, layers=cfg.num_layers,
+               layers_of=get_arch(path_arch).num_layers, policy=policy,
+               batch=sc["batch"], prompt=sc["prompt"],
+               new_tokens=sc["tokens"],
+               tokens_equal=_equal(got.cpu(), want.cpu()),
+               last_tokens=got[:, -1].tolist(), **_stage_peak(device))
+    del on_mesh, cells
+    return rec
+
+
+def _mesh_moe(mc, device, mesh):
+    """(c): one full-width MoE block's ``moe_fwd`` (deepseek-moe-16b's 64
+    routed experts top-6 and 2 shared; random weights from ``SEED``) on
+    ``mesh`` under the "local" dispatch (an all-reduce over "model") and
+    "a2a" (two all-to-alls), each against the mesh-less dispatch on the
+    same routing (``_routing_pin``): output and aux loss to the bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _laid_out
+    from repro_torch.models.moe import init_moe, moe_fwd
+    from repro_torch.sharding.rules import NamedSharding, P, ShardingRules
+
+    base = get_arch(mc["arch"])
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = init_moe(base, dev, gen)
+    x = torch.randn((mc["batch"], mc["seq"], base.d_model), generator=gen,
+                    device=dev).to(p["w_up"].dtype)
+    store, out = {}, {}
+    with torch.no_grad():
+        capture = _routing_pin(store)
+        with capture("ref_kernel"):
+            ref, ref_aux = moe_fwd(base, p, x)
+        for dispatch in ("local", "a2a"):
+            cfg = dataclasses.replace(base, moe_dispatch=dispatch)
+            rules = ShardingRules(cfg, mesh, "fsdp_tp")
+            p_m = _laid_out(p, rules.param_shardings(p))
+            x_m = _laid_out(x, NamedSharding(mesh, P(rules.batch_axes)))
+            store[f"{dispatch}_kernel"] = store["ref_kernel"]
+            t = time.perf_counter()
+            with capture(f"{dispatch}_naive"):
+                got, aux = moe_fwd(cfg, p_m, x_m, mesh=mesh,
+                                   dp_axes=rules.batch_axes,
+                                   dispatch=dispatch)
+            got, aux = _full(got), _full(aux)
+            out[dispatch] = {
+                "out_equal": _equal(got, ref),
+                "aux_equal": _equal(aux, ref_aux),
+                "out_max_abs_diff": float((got.float() - ref.float())
+                                          .abs().max()),
+                "aux": float(aux), "aux_mesh_less": float(ref_aux),
+                "s": time.perf_counter() - t}
+    out.update(arch=base.name, rows=mc["batch"] * mc["seq"],
+               experts=base.moe.num_experts, top_k=base.moe.top_k,
+               **_stage_peak(device))
+    return out
+
+
+def phase_mesh(state, device="cuda", cut=None):
+    """The multi-device layer on a one-rank mesh of the card: a process
+    group of one rank (NCCL, a ``HashStore``: no network) and a (1, 1)
+    ``("data", "model")`` ``DeviceMesh``, destroyed at the phase's end.
+    (a) ``build_cell`` train steps at the train phase's cut (yi-9b at 8 of
+    48 layers, seq 1024, batch 8 in 2 microbatches) on the mesh under
+    "tp", "fsdp_tp" and "fsdp": each step's loss and updated parameters
+    equal to the mesh-less step's, to the bit, and the parameters in the
+    rules' placements after it; (b) a format-v2 snapshot of yi-9b at 12
+    of 48 layers (the cri cut) restored onto the mesh by
+    ``reshard_snapshot_buffers`` (every ``full_tensor()`` equal to the
+    snapshot), then the prefill and decode cells on the mesh (batch 8,
+    prompt 512, 32 greedy tokens; K2 and K1 inside ``shard_map`` on the
+    local shards): tokens equal to the mesh-less cells', K2 12 per
+    prefill and K1 12 per decode step exactly (``PATHS["mesh"]``); (c)
+    one full-width deepseek-moe-16b block's ``moe_fwd`` on the mesh under
+    "local" and "a2a" (NCCL's all-reduce and all-to-all at one rank)
+    equal to the mesh-less dispatch to the bit on pinned routing.  The
+    snapshot is saved and loaded on a thread of its own while (a), (b)'s
+    mesh-less run and (c) run.  The phase holds under ``max_phase_s`` and
+    ``max_peak_gb``.  ``cut``
+    overrides ``MESH`` (``train``, ``serve`` and ``moe`` merge into
+    theirs; an ``arch`` in ``serve`` replaces the path's: a rehearsal on
+    the CPU at smoke size, where launches, peaks and the budget are not
+    checked)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    cut = dict(cut or {})
+    mc = dict(MESH, **{k: v for k, v in cut.items()
+                       if k not in ("train", "serve", "moe")})
+    tc, sc, moc = (dict(MESH[k], **cut.get(k, {}))
+                   for k in ("train", "serve", "moe"))
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    root = tempfile.mkdtemp(prefix="funky-mesh-")
+    try:
+        with _one_rank_mesh(device) as mesh:
+            snapshot = _mesh_snapshot(sc, device, root)
+            if device == "cuda":
+                _free_cuda()
+            out["a"] = _mesh_train(tc, mc["policies"], device, mesh)
+            log(phase="mesh", run="a", card=state.get("card"), **out["a"])
+            if device == "cuda":
+                _free_cuda()
+            # (b)'s mesh-less reference and (c) while the snapshot's I/O
+            # runs
+            reference = _mesh_serve_plain(sc, device, snapshot)
+            if device == "cuda":
+                _free_cuda()
+            out["c"] = _mesh_moe(moc, device, mesh)
+            log(phase="mesh", run="c", card=state.get("card"), **out["c"])
+            if device == "cuda":
+                _free_cuda()
+            out["b"] = _mesh_serve(sc, "tp", device, mesh, snapshot,
+                                   reference)
+            del snapshot, reference
+            log(phase="mesh", run="b", card=state.get("card"), **out["b"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats = {"phase_s": time.perf_counter() - t_phase}
+    if device == "cuda":
+        # each stage logs its own peak and resets the count
+        stats["peak_gb"] = max([r["peak_gb"] for r in out["a"].values()]
+                               + [out["b"]["peak_gb"], out["c"]["peak_gb"]])
+        _free_cuda()
+    log(phase="mesh", card=state.get("card"), summary=stats)
+    state["mesh"] = {**out, **stats}
+    state.setdefault("launches", {})["mesh"] = out["b"]["launches"]
+
+    bad = [f"(a) {p}: {out['a'][p]}" for p in mc["policies"]
+           if not (out["a"][p]["loss_equal"] and out["a"][p]["params_equal"]
+                   and out["a"][p]["placements_kept"])]
+    b = out["b"]
+    if not (b["restored_equal"] and b["tokens_equal"]):
+        bad.append(f"(b) restored_equal {b['restored_equal']}, "
+                   f"tokens_equal {b['tokens_equal']}")
+    bad += [f"(c) {d}: {out['c'][d]}" for d in ("local", "a2a")
+            if not (out["c"][d]["out_equal"] and out["c"][d]["aux_equal"])]
+    if device == "cuda":
+        _, _, per_prefill, per_token = PATHS[sc["key"]]
+        full = b["layers_of"]
+        expected = {k: (per_prefill.get(k, 0)
+                        + sc["tokens"] * per_token.get(k, 0))
+                    * b["layers"] // full for k in _counts()}
+        if b["launches"] != expected:
+            bad.append(f"(b) launches {b['launches']}, expected {expected}")
+        if stats["peak_gb"] > mc["max_peak_gb"]:
+            bad.append(f"peak {stats['peak_gb']:.2f} GB, over "
+                       f"{mc['max_peak_gb']} GB")
+        if stats["phase_s"] > mc["max_phase_s"]:
+            bad.append(f"the phase took {stats['phase_s']:.1f} s, over "
+                       f"{mc['max_phase_s']} s")
+    if bad:
+        raise AssertionError("mesh: " + "; ".join(bad))
+
+
 # ---------------------------------------------------------------------------
 
 def kernel_line(state):
@@ -5160,6 +5613,10 @@ def kernel_line(state):
     # training runs the plain forwards under autograd: no kernel
     for row, key in zip(rows, ("K1", "K1", "K2", "K2", "K3", "K4")):
         row["launches_train"] = state["launches"]["train"][key]
+    # the mesh phase's prefill and decode cells (yi-9b's shapes at 12 of
+    # 48 layers on a one-rank mesh; K1 and K2 on the local shards)
+    rows[0]["launches_mesh"] = state["launches"]["mesh"]["K1"]
+    rows[2]["launches_mesh"] = state["launches"]["mesh"]["K2"]
     r = state["k1p"]["path"]
     rows.append({
         "name": "decode_attention_paged", "route": "cuda",

@@ -7,6 +7,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES
+from repro_torch.launch.mesh import is_dtensor
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -14,7 +15,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs the
     plain version); raises on a mix of devices or a device without a
-    kernel (e.g. ``meta``)."""
+    kernel (e.g. ``meta``), and on a DTensor: on a mesh a kernel runs in
+    ``shard_map`` on each rank's local shards."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError("kernel inputs must be local tensors, not DTensors "
+                        "(run the kernel in launch.mesh.shard_map)")
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return True

@@ -1,5 +1,5 @@
 """Roofline analyzer: compute, memory and collective terms of one (arch x
-shape) step on one H100.  The port of ``repro.launch.roofline``, re-based
+shape) step on one H100 or over a mesh of them.  The port of ``repro.launch.roofline``, re-based
 from the TPU v5e to the H100 SXM.
 
 Methodology as the reference's: small **depth probes** of each
@@ -26,8 +26,17 @@ limit):
   recomputation and masked pairs included, is ``op_compute_s``, as the
   reference's HLO count is.
 * memory = the analytic HBM traffic / 3.35e12 B/s (HBM3);
-* collective = sum(op_bytes * factor) / 450e9 B/s (NVLink 4, a direction;
-  ring all-reduce factor 2), which is 0 on one card.
+* collective = sum(op_bytes * factor) / link rate (ring all-reduce factor
+  2), which is 0 on one card.  The link is NVLink 4's 450e9 B/s a
+  direction while the mesh fits one node of 8 cards (an HGX H100 board);
+  across nodes every ring crosses the inter-node network, priced at
+  ``INTER_NODE_BW`` (an assumption, below).
+
+Over a mesh (``mesh`` "single" or "multi", the reference's 16 x 16 and
+2 x 16 x 16, or a (shape, names) pair) each probe runs on rank 0 of a fake
+process group (``launch.mesh.fake_process_group``) with the ``policy``'s
+layouts: its FLOPs, bytes and collectives are per device, ``n_chips`` is
+the mesh's size, and the memory model takes the mesh's ``dp`` and ``tp``.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline \\
         --arch yi-9b --shape train_4k --out results/roofline.json
@@ -37,10 +46,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 from repro_torch.configs import SHAPES, applicable, get_arch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import (MeshShape, fake_process_group,
+                                     make_mesh, mesh_dims, mesh_name,
+                                     mesh_size)
 from repro_torch.launch.op_stats import collective_seconds, count_step
 from repro_torch.launch.steps import build_cell, sweep
 from repro_torch.models.model_zoo import analytic_param_count, input_specs
@@ -49,6 +62,18 @@ from repro_torch.tree import tree_leaves
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32
 HBM_BW = 3.35e12          # bytes/s, HBM3
 NVLINK_BW = 450e9         # bytes/s a direction, NVLink 4
+NODE_CARDS = 8            # H100s joined all to all by NVLink in one node
+# An assumption, not a measurement: one 400 Gb/s InfiniBand NDR adapter per
+# card (the DGX H100's layout), 50e9 bytes/s a direction.  A mesh past one
+# node prices every collective at this rate: the 16-wide model axis of the
+# production meshes spans two nodes, so its rings cross the network.
+INTER_NODE_BW = 50e9
+
+
+def link_bw(n_chips: int) -> float:
+    """The bytes/s a direction that a collective over ``n_chips`` cards
+    moves at: NVLink within a node, the inter-node network beyond."""
+    return NVLINK_BW if n_chips <= NODE_CARDS else INTER_NODE_BW
 
 
 # ---------------------------------------------------------------------------
@@ -113,13 +138,14 @@ def depth_plan(cfg: ModelConfig):
 
 def _probe_cost(cfg_small: ModelConfig, shape: ShapeConfig, *,
                 remat: str, mla_absorb: bool, prefill_impl: str,
-                decode_impl: str) -> dict:
-    """One probe's step run on the meta device: its matrix-product FLOPs,
-    the bytes its ops read and write, and its collectives' bytes."""
-    cell = build_cell(cfg_small, shape, remat=remat, mla_absorb=mla_absorb,
-                      prefill_impl=prefill_impl, decode_impl=decode_impl,
-                      num_microbatches=1)
-    st, _ = count_step(cell.fn, *cell.abstract_args)
+                decode_impl: str, mesh=None, policy: str = "fsdp_tp") -> dict:
+    """One probe's step run on the meta device (over ``mesh``'s DTensors
+    when given): its matrix-product FLOPs, the bytes its ops read and
+    write, and its collectives' bytes, per device."""
+    cell = build_cell(cfg_small, shape, mesh, policy=policy, remat=remat,
+                      mla_absorb=mla_absorb, prefill_impl=prefill_impl,
+                      decode_impl=decode_impl, num_microbatches=1)
+    st, _ = count_step(cell.fn, *cell.distribute(cell.abstract_args))
     return {"flops": float(st["flops"]), "bytes": float(st["bytes"]),
             "coll_bytes": {k: float(v)
                            for k, v in st["collectives"]["bytes"].items()}}
@@ -175,17 +201,21 @@ def solve_depth(cfg: ModelConfig, costs: dict) -> tuple:
 # bound, reported as ``op_bytes_upper``.  The memory term uses the
 # reference's transparent structural model instead.
 
-def analytic_memory_bytes(cfg: ModelConfig, shape: ShapeConfig, *,
-                          n_chips: int = 1, tp: int = 1,
+def analytic_memory_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                          *, n_chips: int = 1, tp: int = 1,
+                          policy: str = "fsdp_tp",
                           remat: str = "full") -> dict:
-    """HBM bytes of one step per device, as the reference's model (its
-    default ``fsdp_tp`` policy and naive training attention) over a mesh
-    of ``n_chips`` devices with ``tp`` of them on the model axis (1 and 1:
-    one card)."""
+    """HBM bytes of one step per device, as the reference's model (naive
+    training attention) over ``mesh`` (a ``DeviceMesh`` or a
+    ``MeshShape``), or over ``n_chips`` devices with ``tp`` of them on the
+    model axis (1 and 1: one card), under ``policy``."""
+    if mesh is not None:
+        shp = MeshShape.of(mesh)
+        n_chips, tp = shp.size, shp.shape["model"]
     dp = n_chips // tp
     dt = 2  # bf16
     P_total = analytic_param_count(cfg) * dt
-    shards = n_chips
+    shards = n_chips if policy == "fsdp_tp" else tp
     # active params actually touched per token (MoE reads only routed experts)
     P_active = analytic_param_count(cfg, active_only=True) * dt / shards
 
@@ -306,23 +336,46 @@ def _solved_totals(cfg, shp, **kw) -> dict:
 
 def analyze_cell(arch, shape, *, remat: str = "full",
                  mla_absorb: bool = True, prefill_impl: str = "blockwise",
-                 decode_impl: str = "naive") -> dict:
-    """The roofline record of one cell on one H100.  ``arch`` is a name
-    (``get_arch``) or a ``ModelConfig``; ``shape`` a name in ``SHAPES`` or
-    a ``ShapeConfig``."""
+                 decode_impl: str = "naive", mesh=None,
+                 policy: str = "fsdp_tp") -> dict:
+    """The roofline record of one cell on one H100, or per device over
+    ``mesh`` ("single", "multi" or a (shape, names) pair, on a fake
+    process group) under ``policy``.  ``arch`` is a name (``get_arch``) or
+    a ``ModelConfig``; ``shape`` a name in ``SHAPES`` or a
+    ``ShapeConfig``."""
     cfg, shp = _resolve(arch, shape)
     ok, why = applicable(cfg, shp)
     rec = {"arch": cfg.name, "shape": shp.name, "kind": shp.kind,
            "seq_len": shp.seq_len, "global_batch": shp.global_batch,
-           "mesh": "single", "remat": remat, "mla_absorb": mla_absorb,
+           "mesh": mesh_name(mesh), "remat": remat, "mla_absorb": mla_absorb,
            "prefill_impl": prefill_impl, "decode_impl": decode_impl}
+    if mesh is not None:
+        dims = mesh_dims(mesh)
+        rec.update(backend="fake", policy=policy,
+                   mesh_shape=dict(zip(dims[1], dims[0])))
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec
-    n_chips = 1
+    if mesh is None:
+        rec.update(_analyze(cfg, shp, None, remat=remat,
+                            mla_absorb=mla_absorb, prefill_impl=prefill_impl,
+                            decode_impl=decode_impl))
+        return rec
+    with fake_process_group(math.prod(dims[0])):
+        dm = make_mesh(*dims, device="meta")
+        rec.update(_analyze(cfg, shp, dm, remat=remat, mla_absorb=mla_absorb,
+                            prefill_impl=prefill_impl,
+                            decode_impl=decode_impl, policy=policy))
+    return rec
+
+
+def _analyze(cfg, shp, mesh, *, remat, mla_absorb, prefill_impl,
+             decode_impl, policy="fsdp_tp") -> dict:
+    rec: dict = {}
+    n_chips = mesh_size(mesh)
 
     kw = dict(mla_absorb=mla_absorb, prefill_impl=prefill_impl,
-              decode_impl=decode_impl)
+              decode_impl=decode_impl, mesh=mesh, policy=policy)
     t0 = time.perf_counter()
     per_unit, base, total = _solved_totals(cfg, shp, remat=remat, **kw)
     # the work the step must do: no recomputation, no masked pairs
@@ -330,15 +383,20 @@ def analyze_cell(arch, shape, *, remat: str = "full",
     if shp.kind == "train" and remat != "none":
         flops_none = _solved_totals(cfg, shp, remat="none", **kw)[2]["flops"]
     masked = masked_attention_flops(cfg, shp)
-    required = flops_none - masked
 
-    mem_detail = analytic_memory_bytes(cfg, shp, n_chips=n_chips, tp=1,
-                                       remat=remat)
+    if mesh is None:
+        mem_detail = analytic_memory_bytes(cfg, shp, remat=remat)
+    else:
+        mem_detail = analytic_memory_bytes(cfg, shp, mesh, policy=policy,
+                                           remat=remat)
     peak = PEAK_FLOP_S[cfg.dtype]
+    # the masked pairs are the whole step's; on a mesh each device skips
+    # its share of them
+    required = flops_none - masked / n_chips
     compute_s = required / peak
     memory_s = mem_detail["total"] / HBM_BW
-    collective_s = collective_seconds({"bytes": total["coll_bytes"]},
-                                      NVLINK_BW)
+    link = link_bw(n_chips)
+    collective_s = collective_seconds({"bytes": total["coll_bytes"]}, link)
     terms = {"compute_s": compute_s, "memory_s": memory_s,
              "collective_s": collective_s}
     bottleneck = max(terms, key=terms.get)
@@ -352,6 +410,7 @@ def analyze_cell(arch, shape, *, remat: str = "full",
         n_chips=n_chips,
         peak_flop_s=peak,
         hbm_bw=HBM_BW,
+        link_bw=link,
         per_unit=per_unit,
         base=base,
         totals=total,
@@ -378,7 +437,7 @@ def analyze_cell(arch, shape, *, remat: str = "full",
 def _key(r: dict) -> str:
     return "|".join([r["arch"], r["shape"], r["mesh"], r["remat"],
                      str(r["mla_absorb"]), r["prefill_impl"],
-                     r["decode_impl"]])
+                     r["decode_impl"], r.get("policy", "")])
 
 
 def _analyze_or_record(probe: dict) -> dict:
@@ -387,7 +446,10 @@ def _analyze_or_record(probe: dict) -> dict:
                             remat=probe["remat"],
                             mla_absorb=probe["mla_absorb"],
                             prefill_impl=probe["prefill_impl"],
-                            decode_impl=probe["decode_impl"])
+                            decode_impl=probe["decode_impl"],
+                            mesh=(None if probe["mesh"] == "card"
+                                  else probe["mesh"]),
+                            policy=probe["policy"] or "fsdp_tp")
     except Exception as e:  # noqa: BLE001  (recorded, the sweep goes on)
         import traceback
 
@@ -415,6 +477,10 @@ def main(argv=None) -> list:
     ap.add_argument("--prefill-impl", default="blockwise")
     ap.add_argument("--decode-impl", default="naive")
     ap.add_argument("--no-mla-absorb", action="store_true")
+    ap.add_argument("--mesh", default="card",
+                    choices=("card", "single", "multi", "both"))
+    ap.add_argument("--policy", default="fsdp_tp",
+                    choices=("tp", "fsdp_tp", "fsdp"))
     ap.add_argument("--out", default="results/roofline.json")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -423,11 +489,14 @@ def main(argv=None) -> list:
 
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    todo = [{"arch": a, "shape": s, "mesh": "single", "remat": args.remat,
+    meshes = {"card": ["card"], "both": ["single", "multi"]}.get(
+        args.mesh, [args.mesh])
+    todo = [{"arch": a, "shape": s, "mesh": m, "remat": args.remat,
              "mla_absorb": not args.no_mla_absorb,
              "prefill_impl": args.prefill_impl,
-             "decode_impl": args.decode_impl}
-            for a in archs for s in shapes]
+             "decode_impl": args.decode_impl,
+             "policy": args.policy if m != "card" else ""}
+            for m in meshes for a in archs for s in shapes]
     results = sweep(args.out, _key, todo, _analyze_or_record, _report,
                     force=args.force)
     return list(results.values())

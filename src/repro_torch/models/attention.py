@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models.layers import (cdtype, normal, rmsnorm_1d,
                                        rope_fwd)
 
@@ -126,7 +127,41 @@ def sdpa_blockwise(q, k, v, *, causal=True, window=0, q_pos=None, kv_pos=None,
     return out.to(q.dtype).reshape(B, Sq, Hq, hd_v)
 
 
+def head_spec(q, k):
+    """The layout attention runs in on a mesh, for (B, S, H, hd) q, k and
+    v: the batch over the mesh axes that shard q's batch, the heads over
+    ``"model"`` where it divides both q's and k's heads and does not
+    shard the batch; the rest replicated.  Each rank then attends its own
+    (lane, head) pairs."""
+    from repro_torch.sharding.rules import (P, axes_of, axis_names,
+                                            axis_sizes, spec_of)
+
+    mesh = q.device_mesh
+    b = spec_of(q, strict=False)[0]
+    sizes = axis_sizes(mesh)
+    h = None
+    if ("model" in axis_names(mesh) and "model" not in axes_of(b)
+            and q.shape[2] % sizes["model"] == 0
+            and k.shape[2] % sizes["model"] == 0):
+        h = "model"
+    return P(b, None, h, None)
+
+
+def _sdpa_sharded(q, k, v, impl, kw):
+    """``sdpa`` of DTensors in ``shard_map``: every implementation, K2
+    (``"kernel"``) among them, runs on each rank's local (lane, head)
+    shards (``head_spec``); a kernel wrapper never sees a DTensor."""
+    from repro_torch.launch.mesh import shard_map
+
+    spec = head_spec(q, k)
+    return shard_map(lambda q, k, v: sdpa(q, k, v, impl=impl, **kw),
+                     q.device_mesh, in_specs=(spec, spec, spec),
+                     out_specs=spec)(q, k, v)
+
+
 def sdpa(q, k, v, *, impl="naive", **kw):
+    if is_dtensor(q):
+        return _sdpa_sharded(q, k, v, impl, kw)
     if impl == "blockwise":
         return sdpa_blockwise(q, k, v, **kw)
     kw.pop("chunk", None)
@@ -171,13 +206,60 @@ def init_gqa(cfg: ModelConfig, device, gen, count: int = 0) -> dict:
 def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     D, H, hd = w.shape
-    return (x @ w.reshape(D, H * hd)).view(*x.shape[:-1], H, hd)
+    w2 = w.reshape(D, H * hd)
+    if is_dtensor(w2):
+        w2 = _whole_heads(w2, H, 1)
+    y = x @ w2
+    if is_dtensor(y):
+        y = _whole_heads(y, H, y.dim() - 1)
+    return y.view(*x.shape[:-1], H, hd)
+
+
+def _heads_divisible(y, H: int, dim: int):
+    """DTensor ``y`` with its dimension ``dim`` (H * hd, heads major)
+    replicated where it is sharded over more ranks than divide H: a split
+    into (H, hd) needs whole heads on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    n = 1
+    for size, pl in zip(y.device_mesh.shape, y.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            n *= size
+    if H % n == 0:
+        return y
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+           for pl in y.placements]
+    return y.redistribute(y.device_mesh, pls)
+
+
+class _WholeHeads(torch.autograd.Function):
+    """``_heads_divisible`` of a tensor and of its gradient: DTensor's
+    backward of a product picks its own layout for the gradient, which
+    the gradient of the (H, hd) -> H * hd reshape before it must split."""
+
+    @staticmethod
+    def forward(ctx, t, H, dim):
+        ctx.H, ctx.dim = H, dim
+        return _heads_divisible(t, H, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_divisible(g, ctx.H, ctx.dim), None, None
+
+
+def _whole_heads(t, H: int, dim: int):
+    return _WholeHeads.apply(t, H, dim)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     H, hd, D = wo.shape
-    return out.reshape(*out.shape[:-2], H * hd) @ wo.reshape(H * hd, D)
+    o2 = out.reshape(*out.shape[:-2], H * hd)
+    w2 = wo.reshape(H * hd, D)
+    if is_dtensor(w2):
+        o2 = _whole_heads(o2, H, o2.dim() - 1)
+        w2 = _whole_heads(w2, H, 0)
+    return o2 @ w2
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -236,6 +318,8 @@ def _ring_cache_from_prefill(entries: dict, S: int, cap: int) -> dict:
     INVALID sentinel."""
     n = min(S, cap)
     some = next(iter(entries.values()))
+    if is_dtensor(some):
+        return _ring_cache_sharded(entries, S, cap)
     pos = torch.arange(S - n, S, dtype=torch.int32, device=some.device)
     idx = (pos % cap).long()
     out = {}
@@ -248,6 +332,38 @@ def _ring_cache_from_prefill(entries: dict, S: int, cap: int) -> dict:
                         device=some.device)
     kv_pos[idx] = pos
     out["kv_pos"] = kv_pos
+    return out
+
+
+def _ring_cache_sharded(entries: dict, S: int, cap: int) -> dict:
+    """``_ring_cache_from_prefill`` of DTensor (B, S, H, hd) entries in
+    ``shard_map`` (each rank fills its own lanes and heads); ``kv_pos``
+    is the same on every rank, replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import shard_map
+
+    names = sorted(entries)
+    k = entries["k"] if "k" in entries else entries[names[0]]
+    spec = head_spec(k, k)
+    mesh = k.device_mesh
+
+    def body(*local):
+        out = _ring_cache_from_prefill(dict(zip(names, local)), S, cap)
+        return tuple(out[n] for n in names)
+
+    bufs = shard_map(body, mesh, in_specs=(spec,) * len(names),
+                     out_specs=(spec,) * len(names))(
+        *(entries[n] for n in names))
+    out = dict(zip(names, bufs))
+    n = min(S, cap)
+    pos = torch.arange(S - n, S, dtype=torch.int32, device=k.to_local().device)
+    kv_pos = torch.full((cap,), _INVALID_POS, dtype=torch.int32,
+                        device=pos.device)
+    kv_pos[(pos % cap).long()] = pos
+    out["kv_pos"] = DTensor.from_local(kv_pos, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
     return out
 
 
@@ -285,6 +401,9 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     cap = cache["k"].shape[1]
     k, v, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
+    if is_dtensor(x):
+        return _gqa_decode_sharded(cfg, p, x, pos, cache, window=window,
+                                   impl=impl)
     if kv_pos.dim() == 2:
         B = x.shape[0]
         positions = pos.reshape(B).to(torch.int32)
@@ -309,6 +428,78 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out = da_ops.decode_attention_ref(q, k, v, positions, kv_pos, **kw)
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
+    return _out_proj(out, p["wo"]), cache
+
+
+def _ring_write_local(mesh, s_axes, c, new, slot):
+    """In a ``shard_map`` body: write ``new`` (B, 1, ...) at ring slot
+    ``slot`` (a 1-element tensor, global) of this rank's shard ``c`` (B,
+    cap_l, ...) of a ring cache, in place, and return the cache this rank
+    attends over.  A cache whose slots are sharded over ``s_axes`` takes
+    the write on the rank that holds the slot, and the shards are then
+    all-gathered along the slots."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group, axis_index
+
+    if not s_axes:
+        c.index_copy_(1, slot, new)
+        return c
+    cap_l = c.shape[1]
+    ls = slot - axis_index(mesh, s_axes) * cap_l
+    mine = ((ls >= 0) & (ls < cap_l)).reshape((1,) * c.dim())
+    ls = ls.clamp(0, cap_l - 1)
+    c.index_copy_(1, ls, torch.where(mine, new, c.index_select(1, ls)))
+    group = axis_group(mesh, s_axes)
+    parts = [torch.empty_like(c) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, c.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _gqa_decode_sharded(cfg: ModelConfig, p: dict, x, pos, cache: dict, *,
+                        window, impl: str):
+    """``gqa_decode`` on a mesh: the projections on DTensors, then the
+    ring write and the attention (K1 for ``impl="kernel"``) in
+    ``shard_map`` on each rank's shards of the cache, in the cache's own
+    layout (``ShardingRules.cache_specs``), so the write lands in place.
+    A cache sharded over its slots (kv heads that do not divide
+    ``"model"``) takes the write on the rank that holds the slot, and each
+    rank then all-gathers the layer's k and v over those ranks before it
+    attends."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.launch.mesh import shard_map
+    from repro_torch.sharding.rules import P, axes_of, spec_of
+
+    k, v, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
+    if kv_pos.dim() != 1:
+        raise ValueError("per-lane rings run without a mesh")
+    cap = k.shape[1]
+    pos = pos.to_local() if is_dtensor(pos) else pos
+    positions = pos.reshape(1).to(torch.int32)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    c_spec = spec_of(k)
+    b, s, h = c_spec[0], c_spec[1], c_spec[2]
+    s_axes = axes_of(s)
+    mesh = k.device_mesh
+    w = cfg.sliding_window if window is None else window
+    kw = dict(window=w, softcap=cfg.attn_logit_softcap)
+    attend = {"kernel": da_ops.decode_attention,
+              "naive": da_ops.decode_attention_ref}.get(impl)
+    if attend is None:
+        raise ValueError(f"unknown decode impl {impl!r}")
+
+    def body(q, k_new, v_new, k, v, kv_pos):
+        pl = positions.to(q.device)
+        slot = pl.long() % cap
+        kv_pos.index_copy_(0, slot, pl)
+        k = _ring_write_local(mesh, s_axes, k, k_new, slot)
+        v = _ring_write_local(mesh, s_axes, v, v_new, slot)
+        return attend(q, k, v, pl, kv_pos, **kw)
+
+    qs = P(b, None, h, None)
+    out = shard_map(body, mesh,
+                    in_specs=(qs, qs, qs, c_spec, c_spec, P(None)),
+                    out_specs=qs)(q, k_new, v_new, k, v, kv_pos)
     return _out_proj(out, p["wo"]), cache
 
 
@@ -484,26 +675,32 @@ def _mla_attend(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, k_pe, mask,
     broadcast to (B, H, S).  Scores in f32, scaled by
     ``(qk_nope + qk_rope) ** -0.5``; probabilities in the working dtype.
     Returns (B, 1, D)."""
+    out = _mla_core(cfg, absorb, q_nope, q_pe, ckv, k_pe, mask, p["wk_b"],
+                    p["wv_b"])
+    return _out_proj(out, p["wo"])
+
+
+def _mla_core(cfg: ModelConfig, absorb: bool, q_nope, q_pe, ckv, k_pe, mask,
+              wk_b, wv_b) -> torch.Tensor:
+    """``_mla_attend`` before the output projection: (B, 1, H, v)."""
     m = cfg.mla
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     if absorb:
         # score = (q_nope Wk_b^T) . ckv + q_pe . k_pe: never decompress
-        q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])
+        q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, wk_b)
         s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
              + torch.einsum("bqhk,bsk->bhqs", q_pe, k_pe)).float()
         s = s[:, :, 0, :] * scale + mask
         probs = torch.softmax(s, dim=-1).to(q_nope.dtype)     # (B, H, S)
         o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv)
-        out = torch.einsum("bhr,rhk->bhk", o_lat, p["wv_b"])[:, None]
-    else:
-        k_nope = _head_proj(ckv, p["wk_b"])
-        v = _head_proj(ckv, p["wv_b"])
-        s = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
-             + torch.einsum("bqhk,bsk->bhqs", q_pe, k_pe)).float()
-        s = s[:, :, 0, :] * scale + mask
-        probs = torch.softmax(s, dim=-1).to(q_nope.dtype)
-        out = torch.einsum("bhs,bshk->bhk", probs, v)[:, None]
-    return _out_proj(out, p["wo"])
+        return torch.einsum("bhr,rhk->bhk", o_lat, wv_b)[:, None]
+    k_nope = _head_proj(ckv, wk_b)
+    v = _head_proj(ckv, wv_b)
+    s = (torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+         + torch.einsum("bqhk,bsk->bhqs", q_pe, k_pe)).float()
+    s = s[:, :, 0, :] * scale + mask
+    probs = torch.softmax(s, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhs,bshk->bhk", probs, v)[:, None]
 
 
 def _keep_bias(kv_pos: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -523,6 +720,8 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     (B,), lane b writing slot ``pos[b] % cap`` of its row."""
     ckv, k_pe, kv_pos = cache["ckv"], cache["k_pe"], cache["kv_pos"]
     cap = ckv.shape[1]
+    if is_dtensor(x):
+        return _mla_decode_sharded(cfg, p, x, pos, cache, absorb=absorb)
     if kv_pos.dim() == 2:
         B = x.shape[0]
         positions = pos.reshape(B).to(torch.int32)
@@ -545,6 +744,50 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         mask = _keep_bias(kv_pos, positions)[None, None, :]
     out = _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, mask, absorb)
     return out, cache
+
+
+def _mla_decode_sharded(cfg: ModelConfig, p: dict, x, pos, cache: dict, *,
+                        absorb: bool):
+    """``mla_decode`` on a mesh: the projections on DTensors, then the
+    ring write and the latent attention in ``shard_map`` on each rank's
+    shards of the cache in the cache's own layout (the write lands in
+    place; DTensor's ``index_copy_`` may re-lay its target out and write
+    a copy, and its einsum fails on a sharded head axis), the heads over
+    ``"model"`` where it divides them."""
+    from repro_torch.launch.mesh import shard_map
+    from repro_torch.sharding.rules import P, axes_of, spec_of
+
+    ckv, k_pe, kv_pos = cache["ckv"], cache["k_pe"], cache["kv_pos"]
+    if kv_pos.dim() != 1:
+        raise ValueError("per-lane rings run without a mesh")
+    cap = ckv.shape[1]
+    pos = pos.to_local() if is_dtensor(pos) else pos
+    positions = pos.reshape(1).to(torch.int32)
+    q_nope, q_pe = _mla_q(cfg, p, x, positions)
+    ckv_new, k_pe_new = _mla_latent(cfg, p, x, positions)
+    c_spec = spec_of(ckv)
+    b, s_axes = c_spec[0], axes_of(c_spec[1])
+    mesh = ckv.device_mesh
+    qs = head_spec(q_nope, q_nope)
+    qs = P(b, None, qs[2] if qs[2] not in axes_of(b) else None, None)
+    w = P(None, qs[2], None)
+    n = P(b, None, None)
+
+    def body(q_nope, q_pe, ckv_new, k_pe_new, ckv, k_pe, kv_pos, wk_b, wv_b):
+        pl = positions.to(q_nope.device)
+        slot = pl.long() % cap
+        kv_pos.index_copy_(0, slot, pl)
+        ckv = _ring_write_local(mesh, s_axes, ckv, ckv_new, slot)
+        k_pe = _ring_write_local(mesh, s_axes, k_pe, k_pe_new, slot)
+        mask = _keep_bias(kv_pos, pl)[None, None, :]
+        return _mla_core(cfg, absorb, q_nope, q_pe, ckv, k_pe, mask, wk_b,
+                         wv_b)
+
+    out = shard_map(body, mesh,
+                    in_specs=(qs, qs, n, n, c_spec, c_spec, P(None), w, w),
+                    out_specs=qs)(q_nope, q_pe, ckv_new, k_pe_new, ckv, k_pe,
+                                  kv_pos, p["wk_b"], p["wv_b"])
+    return _out_proj(out, p["wo"]), cache
 
 
 def mla_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,

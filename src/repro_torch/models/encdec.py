@@ -36,8 +36,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cdtype, cross_entropy, embed_fwd,
                                        init_embed, init_mlp, init_norm,
-                                       lm_head_fwd, mlp_fwd, norm_fwd)
-from repro_torch.models.transformer import _layer, _maybe_remat, _unstack
+                                       lm_head_fwd, mlp_fwd, norm_fwd,
+                                       shard_batch_dim, shard_logits)
+from repro_torch.models.transformer import (_layer, _maybe_remat, _position,
+                                           _unstack)
 from repro_torch.tree import tree_map
 
 
@@ -176,13 +178,16 @@ def encode(cfg: ModelConfig, params: dict, src_emb, *, impl: str = "naive",
 
 
 def encdec_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-                remat: str = "none"):
+                remat: str = "none", mesh=None, dp_axes=()):
     """batch: src_emb (B, S_src, D), tgt_tokens (B, S_tgt), tgt_targets,
     optional loss_mask.  Plain attention throughout (naive, as the
     reference's training).  Returns (loss, {"loss", "aux_loss"}), the aux
-    loss zero."""
+    loss zero.  On a mesh the activations are batch-sharded over
+    ``dp_axes`` and the logits stay vocab-sharded (``shard_logits``)."""
     memory = encode(cfg, params, batch["src_emb"], impl="naive", remat=remat)
-    x = embed_fwd(cfg, params["embed"], batch["tgt_tokens"])
+    memory = shard_batch_dim(memory, mesh, dp_axes)
+    x = shard_batch_dim(embed_fwd(cfg, params["embed"], batch["tgt_tokens"]),
+                        mesh, dp_axes)
 
     def body(x, p):
         kv = cross_kv(cfg, p["cross_attn"], memory)
@@ -193,7 +198,7 @@ def encdec_loss(cfg: ModelConfig, params: dict, batch: dict, *,
     for p in _unstack(params["dec_stack"], cfg.num_layers):
         x = body(x, p)
     x = norm_fwd(cfg, params["dec_final_norm"], x)
-    logits = lm_head_fwd(cfg, params["embed"], x)
+    logits = shard_logits(lm_head_fwd(cfg, params["embed"], x), mesh, dp_axes)
     loss = cross_entropy(logits, batch["tgt_targets"], batch.get("loss_mask"))
     return loss, {"loss": loss,
                   "aux_loss": torch.zeros((), dtype=torch.float32,
@@ -202,11 +207,13 @@ def encdec_loss(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def encdec_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                    impl: str = "kernel", prefill_chunk: int = 1024,
-                   cache_margin: int = 0):
+                   cache_margin: int = 0, mesh=None, dp_axes=()):
     """Encode ``src_emb``, prefill the decoder over ``tgt_tokens``.
     Returns (last-token logits (B, V), caches)."""
-    memory = encode(cfg, params, batch["src_emb"], impl=impl)
-    x = embed_fwd(cfg, params["embed"], batch["tgt_tokens"])
+    memory = shard_batch_dim(encode(cfg, params, batch["src_emb"], impl=impl),
+                             mesh, dp_axes)
+    x = shard_batch_dim(embed_fwd(cfg, params["embed"], batch["tgt_tokens"]),
+                        mesh, dp_axes)
     caches = []
     for i in range(cfg.num_layers):
         p = _layer(params["dec_stack"], i)
@@ -222,16 +229,18 @@ def encdec_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def encdec_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
-                  caches, *, impl: str = "kernel", inplace: bool = False):
+                  caches, *, impl: str = "kernel", inplace: bool = False,
+                  mesh=None, dp_axes=()):
     """token: (B,) int; pos: int or 0-d int tensor, the target position.
     Returns (logits (B, V), caches).  ``inplace=True`` writes the self
     caches' new entries into ``caches`` itself; otherwise into a copy of
     ``self`` (the cross k/v are never written, and are shared)."""
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    pos = _position(pos, token)
     if not inplace:
         caches = dict(caches, self=tree_map(torch.clone, caches["self"]))
     cross_pos = cross_positions(caches["cross_k"][0])
-    x = embed_fwd(cfg, params["embed"], token[:, None])
+    x = shard_batch_dim(embed_fwd(cfg, params["embed"], token[:, None]),
+                        mesh, dp_axes)
     for i in range(cfg.num_layers):
         x, _ = _dec_layer(cfg, _layer(params["dec_stack"], i), x,
                           (caches["cross_k"][i], caches["cross_v"][i]),

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import is_dtensor, mesh_ranks
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -177,13 +178,141 @@ def init_embed(cfg: ModelConfig, device,
 
 
 def embed_fwd(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p["embedding"]):
+        return _embed_sharded(tokens, p["embedding"])
     return F.embedding(tokens.long(), p["embedding"])
+
+
+def _embed_sharded(tokens, table):
+    """The lookup of a DTensor table, vocab-parallel in ``shard_map``:
+    each rank looks its tokens up in its own vocabulary rows (zero where
+    another rank holds the row) and the result is a partial sum over the
+    vocab axes, reduced where the next layout needs it.  DTensor's own
+    lookup into a vocab-sharded table fails on a batch-sharded index."""
+    from repro_torch.launch.mesh import axis_index, shard_map
+    from repro_torch.sharding.rules import P, axes_of, partial_over, spec_of
+
+    mesh = table.device_mesh
+    v_entry = spec_of(table)[0]
+    v_axes = axes_of(v_entry)
+    # the tokens are replicated over the vocab axes: every rank of a
+    # vocab group looks up the same tokens in its own rows
+    t_spec = spec_of(tokens)
+    b_axes = tuple(a for a in axes_of(t_spec[0]) if a not in v_axes)
+    t_spec = P(b_axes or None, *t_spec[1:])
+    tab_spec = P(v_entry, None)
+
+    def body(tok, tab):
+        if not v_axes:
+            return F.embedding(tok.long(), tab)
+        V_l = tab.shape[0]
+        t = tok.long() - axis_index(mesh, v_axes) * V_l
+        inr = (t >= 0) & (t < V_l)
+        return torch.where(inr[..., None],
+                           F.embedding(t.clamp(0, V_l - 1), tab), 0.0)
+
+    out_spec = partial_over(P(*t_spec, None), v_axes)
+    return shard_map(body, mesh, in_specs=(t_spec, tab_spec),
+                     out_specs=out_spec,
+                     in_grad_specs=(t_spec, partial_over(tab_spec, b_axes))
+                     )(tokens, table)
 
 
 def lm_head_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
+
+
+def shard_logits(logits: torch.Tensor, mesh, dp_axes) -> torch.Tensor:
+    """Keep (B, S, V) logits vocab-sharded over the model axis (and the
+    batch over ``dp_axes`` where it divides), as the reference pins them:
+    the loss then reduces shard-locally plus small all-reduces
+    (``cross_entropy``), never an all-gather of full-vocab f32 logits.
+    Identity without a mesh."""
+    if mesh is None or not is_dtensor(logits):
+        return logits
+    from repro_torch.sharding.rules import P, axis_names, placements
+
+    names = axis_names(mesh)
+    if "model" not in names:
+        return logits
+    dp_axes = tuple(dp_axes or ())
+    bdim = (dp_axes if dp_axes and logits.shape[0] % mesh_ranks(mesh, dp_axes)
+            == 0 else None)
+    tp = ("model" if logits.shape[-1] % mesh_ranks(mesh, "model") == 0
+          and "model" not in (bdim or ()) else None)
+    spec = P(bdim, *([None] * (logits.dim() - 2)), tp)
+    return logits.redistribute(mesh, placements(spec, mesh, logits.shape))
+
+
+def shard_batch_dim(x: torch.Tensor, mesh, dp_axes) -> torch.Tensor:
+    """Lay dim 0 (batch) over the data axes, the rest replicated, where
+    they divide it: activations never replicate across data shards.
+    Identity without a mesh."""
+    if mesh is None or not dp_axes or not is_dtensor(x):
+        return x
+    if x.shape[0] % mesh_ranks(mesh, dp_axes) != 0:
+        return x
+    from repro_torch.sharding.rules import P, placements
+
+    spec = P(tuple(dp_axes), *([None] * (x.dim() - 1)))
+    return x.redistribute(mesh, placements(spec, mesh, x.shape))
+
+
+def _cross_entropy_sharded(logits, targets, mask):
+    """``cross_entropy`` of DTensor logits, vocab-parallel in
+    ``shard_map``: each rank takes its rows' max, sum of exponentials and
+    gold logit over its own vocabulary slice, and the model group sums
+    them (the gold logit is the one rank's that holds the target).  The
+    mean over the rows is a partial sum over the batch axes.  DTensor's
+    own ``gather`` over a vocab-sharded dimension fails, and an
+    all-gather of the logits is what ``shard_logits`` exists to avoid."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group, axis_index, psum, shard_map
+    from repro_torch.sharding.rules import P, axes_of, partial_over, spec_of
+
+    mesh = logits.device_mesh
+    spec = spec_of(logits)
+    b_axes, v_axes = axes_of(spec[0]), axes_of(spec[-1])
+    nd = logits.dim()
+    l_spec = P(spec[0], *([None] * (nd - 2)), spec[-1])
+    t_spec = P(spec[0], *([None] * (targets.dim() - 1)))
+    n_rows = logits[..., 0].numel()
+    n_b = mesh_ranks(mesh, b_axes) if b_axes else 1
+
+    def body(lg, tg, *mk):
+        v_group = axis_group(mesh, v_axes) if v_axes else None
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        if v_group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=v_group)
+        shifted = (lg - m).float()
+        sumexp = torch.exp(shifted).sum(dim=-1)
+        t = tg.long()[..., None]
+        if v_group is None:
+            gold = shifted.gather(-1, t)[..., 0]
+        else:
+            V_l = lg.shape[-1]
+            t = t - axis_index(mesh, v_axes) * V_l
+            inr = (t >= 0) & (t < V_l)
+            gold = torch.where(inr, shifted.gather(-1, t.clamp(0, V_l - 1)),
+                               0.0)[..., 0]
+            sumexp, gold = psum(sumexp, v_group), psum(gold, v_group)
+        nll = torch.log(sumexp) - gold
+        if mk:
+            w = mk[0].float()
+            den = w.sum()
+            if n_b > 1:
+                den = den.detach().clone()
+                dist.all_reduce(den, group=axis_group(mesh, b_axes))
+            return (nll * w).sum() / torch.clamp(den, min=1.0)
+        return nll.mean() if n_b == 1 else nll.sum() / n_rows
+
+    args = (logits, targets) + ((mask,) if mask is not None else ())
+    return shard_map(body, mesh,
+                     in_specs=(l_spec, t_spec, t_spec)[:len(args)],
+                     out_specs=partial_over(P(), b_axes))(*args)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -193,7 +322,9 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     ``gather`` of the same f32 value the reference takes as a masked sum
     over the vocab axis (a sum of one value and zeros), without a
     (B, S, V) mask; its backward writes one value per row, so it sums in
-    no order."""
+    no order.  DTensor logits (a mesh) take the vocab-parallel form."""
+    if is_dtensor(logits):
+        return _cross_entropy_sharded(logits, targets, mask)
     m = logits.detach().amax(dim=-1, keepdim=True)
     shifted = (logits - m).float()
     lse = torch.log(torch.exp(shifted).sum(dim=-1))

@@ -23,6 +23,15 @@ plans: plain tensor code over latent pages).  The encoder-decoder has none
 raises.  Its ``cache_specs(b, s)`` are ``encdec_cache_specs(cfg, b, s, s)``,
 as the reference's.
 
+``mesh`` (a ``DeviceMesh``) and ``dp_axes`` (default: the mesh's
+``("pod", "data")`` axes) lay the step over several devices, as the
+reference's ``build_model(..., mesh, dp_axes)``: the parameters and
+inputs are then DTensors (``launch/steps.py`` lays them out by
+``sharding.rules``), the activations batch-sharded over ``dp_axes``, the
+logits vocab-sharded into the loss, an MoE block on its expert-parallel
+dispatch, and attention on each rank's own lanes and heads.  The paged
+decode runs without a mesh.
+
 ``mla_absorb`` picks MLA's decode form, as the reference's does: True (the
 default) attends in latent space, False decompresses the cache.
 
@@ -38,6 +47,7 @@ are what they are held against.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable
@@ -48,6 +58,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as _ed
 from repro_torch.models import transformer as _tf
 from repro_torch.models.layers import cdtype
+from repro_torch.sharding.rules import dp_axes_of
 from repro_torch.tree import tree_leaves
 
 
@@ -66,18 +77,46 @@ class ModelBundle:
 def build_model(cfg: ModelConfig, *, prefill_impl: str = "kernel",
                 decode_impl: str = "kernel", prefill_chunk: int = 1024,
                 cache_margin: int = 128, remat: str = "none",
-                mla_absorb: bool = True) -> ModelBundle:
+                mla_absorb: bool = True, mesh=None,
+                dp_axes: tuple[str, ...] | None = None) -> ModelBundle:
+    if dp_axes is None:
+        dp_axes = () if mesh is None else dp_axes_of(mesh)
+    on = dict(mesh=mesh, dp_axes=tuple(dp_axes))
+    bundle = _build(cfg, prefill_impl, decode_impl, prefill_chunk,
+                    cache_margin, remat, mla_absorb, on)
+    if mesh is None:
+        return bundle
+    return dataclasses.replace(
+        bundle, loss_fn=_replicating(bundle.loss_fn),
+        prefill_fn=_replicating(bundle.prefill_fn),
+        decode_fn=_replicating(bundle.decode_fn))
+
+
+def _replicating(fn):
+    """``fn`` with plain tensors it meets among DTensors taken as
+    replicated (positions, masks, constants built inside the model)."""
+    def run(*args, **kwargs):
+        from repro_torch.launch.mesh import replicating
+
+        with replicating():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _build(cfg, prefill_impl, decode_impl, prefill_chunk, cache_margin,
+           remat, mla_absorb, on) -> ModelBundle:
     if cfg.family == "encdec":
         return ModelBundle(
             cfg=cfg,
             init=partial(_ed.init_encdec, cfg),
             prefill_fn=partial(_ed.encdec_prefill, cfg, impl=prefill_impl,
                                prefill_chunk=prefill_chunk,
-                               cache_margin=cache_margin),
-            decode_fn=partial(_ed.encdec_decode, cfg, impl=decode_impl),
+                               cache_margin=cache_margin, **on),
+            decode_fn=partial(_ed.encdec_decode, cfg, impl=decode_impl,
+                              **on),
             cache_specs=lambda b, s: _ed.encdec_cache_specs(cfg, b, s, s),
             decode_paged_fn=partial(_no_paged_decode, cfg),
-            loss_fn=partial(_ed.encdec_loss, cfg, remat=remat),
+            loss_fn=partial(_ed.encdec_loss, cfg, remat=remat, **on),
             cache_margin=cache_margin,
         )
     return ModelBundle(
@@ -85,13 +124,13 @@ def build_model(cfg: ModelConfig, *, prefill_impl: str = "kernel",
         init=partial(_tf.init_lm, cfg),
         prefill_fn=partial(_tf.lm_prefill, cfg, impl=prefill_impl,
                            prefill_chunk=prefill_chunk,
-                           cache_margin=cache_margin),
+                           cache_margin=cache_margin, **on),
         decode_fn=partial(_tf.lm_decode, cfg, impl=decode_impl,
-                          mla_absorb=mla_absorb),
+                          mla_absorb=mla_absorb, **on),
         cache_specs=partial(_tf.lm_cache_specs, cfg),
         decode_paged_fn=partial(_tf.lm_decode_paged, cfg, impl=decode_impl,
                                 mla_absorb=mla_absorb),
-        loss_fn=partial(_tf.lm_loss, cfg, remat=remat),
+        loss_fn=partial(_tf.lm_loss, cfg, remat=remat, **on),
         cache_margin=cache_margin,
     )
 

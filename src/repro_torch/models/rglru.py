@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        cdtype, gelu, normal)
 
@@ -31,8 +32,30 @@ _C = 8.0
 _N_BLOCKS = 16
 
 
+def _block_matmul_sharded(u, w):
+    """``_block_matmul`` of DTensors in ``shard_map``: each rank takes
+    its own blocks (u's channels laid out as w's blocks).  DTensor's
+    einsum cannot merge the block axis back into the channels when the
+    block axis is sharded."""
+    from repro_torch.launch.mesh import shard_map
+    from repro_torch.sharding.rules import P, axes_of, partial_over, spec_of
+
+    blk = spec_of(w)[0]
+    b = spec_of(u, strict=False)[0]
+    if set(axes_of(b)) & set(axes_of(blk)):
+        b = None
+    u_spec = P(b, *([None] * (u.dim() - 2)), blk)
+    w_spec = P(blk, None, None)
+    return shard_map(_block_matmul, w.device_mesh, in_specs=(u_spec, w_spec),
+                     out_specs=u_spec,
+                     in_grad_specs=(u_spec, partial_over(w_spec, axes_of(b)))
+                     )(u, w)
+
+
 def _block_matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """u: (..., W) x block-diagonal w: (nb, W/nb, W/nb) -> (..., W)."""
+    if is_dtensor(w):
+        return _block_matmul_sharded(u, w)
     nb, bs, _ = w.shape
     un = u.reshape(u.shape[:-1] + (nb, bs))
     return torch.einsum("...nk,nkj->...nj", un, w).reshape(u.shape)

@@ -38,11 +38,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (cross_entropy, embed_fwd, init_embed,
                                        init_mlp, init_norm, lm_head_fwd,
-                                       mlp_fwd, norm_fwd)
+                                       mlp_fwd, norm_fwd, shard_batch_dim,
+                                       shard_logits)
 from repro_torch.models.moe import init_moe, moe_fwd
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -140,7 +142,8 @@ def init_block(cfg: ModelConfig, spec: BlockSpec, device, gen,
 def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
                 *, mode: str, cache, pos, prefill_impl: str = "kernel",
                 decode_impl: str = "kernel", prefill_chunk: int = 1024,
-                cache_margin: int = 0, mla_absorb: bool = True):
+                cache_margin: int = 0, mla_absorb: bool = True, mesh=None,
+                dp_axes: Tuple[str, ...] = ()):
     """mode: train | prefill | decode. Returns (x, aux, cache): ``aux`` is
     an MoE block's aux loss in training, else None; training has no cache
     (None).  ``prefill_impl`` "kernel" puts every mixer's prefill on
@@ -150,9 +153,12 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
     reference's default, ``blockwise``, and its decode is plain tensor
     code in the form ``mla_absorb`` picks.
     Training runs the plain versions only (naive attention, the plain SSD
-    and RG-LRU scans): no kernel has a backward."""
+    and RG-LRU scans): no kernel has a backward.  ``mesh`` (DTensor
+    parameters and activations) puts an MoE block on its expert-parallel
+    dispatch (``cfg.moe_dispatch``) over ``dp_axes``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    x = shard_batch_dim(x, mesh, dp_axes)
     h = norm_fwd(cfg, p["norm1"], x)
     new_cache = None
     if spec.mixer == "attn":
@@ -202,7 +208,8 @@ def block_apply(cfg: ModelConfig, p: dict, spec: BlockSpec, x: torch.Tensor,
         x = x + mlp_fwd(cfg, p["mlp"], norm_fwd(cfg, p["norm2"], x))
     elif spec.ffn == "moe":
         out, aux = moe_fwd(cfg, p["moe"], norm_fwd(cfg, p["norm2"], x),
-                           aux=mode == "train")
+                           aux=mode == "train", mesh=mesh,
+                           dp_axes=dp_axes, dispatch=cfg.moe_dispatch)
         x = x + out
     return x, aux, new_cache
 
@@ -355,7 +362,9 @@ def lm_backbone(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
     """Run all segments over input embeddings h. Returns (h, aux, caches):
     ``aux`` the MoE aux loss summed over blocks in training (None without
     MoE blocks, and outside training); training returns no caches
-    (None)."""
+    (None).  On a mesh (``kw`` ``mesh``, ``dp_axes``) h is first laid out
+    batch-sharded over ``dp_axes`` (``shard_batch_dim``)."""
+    h = shard_batch_dim(h, kw.get("mesh"), kw.get("dp_axes"))
     caches_out, aux = [], None
     for i, seg in enumerate(plan_segments(cfg)):
         seg_cache = caches[i] if caches is not None else None
@@ -378,16 +387,19 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-            remat: str = "none"):
+            remat: str = "none", mesh=None, dp_axes: Tuple[str, ...] = ()):
     """batch: tokens (B, S) int, targets (B, S) int, optional loss_mask,
     optional img_emb (B, N, D) spliced in front (vlm; the loss is over
     the text positions only).  Returns (total, {"loss", "aux_loss"}):
     with MoE blocks total = loss + ``router_aux_weight`` * aux, the aux
     loss summed over the blocks; without, the aux loss is zero and total
-    is the loss."""
+    is the loss.  On a mesh the logits stay vocab-sharded into the loss
+    (``shard_logits``)."""
     h, n_img = _embed_inputs(cfg, params, batch)
-    h, aux, _ = lm_backbone(cfg, params, h, mode="train", remat=remat)
+    h, aux, _ = lm_backbone(cfg, params, h, mode="train", remat=remat,
+                            mesh=mesh, dp_axes=dp_axes)
     logits = lm_head_fwd(cfg, params["embed"], h[:, n_img:, :])
+    logits = shard_logits(logits, mesh, dp_axes)
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
     if aux is None:
         return loss, {"loss": loss,
@@ -399,35 +411,49 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def lm_prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                impl: str = "kernel", prefill_chunk: int = 1024,
-               cache_margin: int = 0):
+               cache_margin: int = 0, mesh=None,
+               dp_axes: Tuple[str, ...] = ()):
     """Returns (last-token logits (B, V), caches).  A vlm batch's
     ``img_emb`` takes positions ``0..N-1``, the text follows it."""
     h, _ = _embed_inputs(cfg, params, batch)
     h, _, caches = lm_backbone(cfg, params, h, mode="prefill",
                                prefill_impl=impl, decode_impl="kernel",
                                prefill_chunk=prefill_chunk,
-                               cache_margin=cache_margin)
+                               cache_margin=cache_margin, mesh=mesh,
+                               dp_axes=dp_axes)
     logits = lm_head_fwd(cfg, params["embed"], h[:, -1:, :])
     return logits[:, 0, :], caches
 
 
 def lm_decode(cfg: ModelConfig, params: dict, token: torch.Tensor, pos,
               caches, *, impl: str = "kernel", inplace: bool = False,
-              mla_absorb: bool = True):
+              mla_absorb: bool = True, mesh=None,
+              dp_axes: Tuple[str, ...] = ()):
     """token: (B,) int; pos: int or 0-d int tensor. Returns (logits,
     caches).  ``inplace=True`` writes the new entries into ``caches``
     itself (the monitor's donated buffers); otherwise a copy is updated.
     ``mla_absorb`` picks MLA's decode form (latent or decompressed)."""
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    pos = _position(pos, token)
     if not inplace:
         caches = tree_map(torch.clone, caches)
     h = embed_fwd(cfg, params["embed"], token[:, None])
     h, _, caches = lm_backbone(cfg, params, h, mode="decode",
                                caches=caches, pos=pos, prefill_impl="kernel",
                                decode_impl=impl, prefill_chunk=0,
-                               cache_margin=0, mla_absorb=mla_absorb)
+                               cache_margin=0, mla_absorb=mla_absorb,
+                               mesh=mesh, dp_axes=dp_axes)
     logits = lm_head_fwd(cfg, params["embed"], h)
     return logits[:, 0, :], caches
+
+
+def _position(pos, token) -> torch.Tensor:
+    """A decode step's position as a 0-d int32 tensor on the token's
+    device (on a mesh: the replicated position's local copy)."""
+    if is_dtensor(pos):
+        pos = pos.to_local()
+    if is_dtensor(token):
+        token = token.to_local()
+    return torch.as_tensor(pos, dtype=torch.int32, device=token.device)
 
 
 # The paged decode runs its batch at a multiple of this many rows, the

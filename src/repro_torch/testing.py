@@ -1,4 +1,6 @@
-"""Bridges to the reference package's numbers, for the parity tests.
+"""Bridges to the reference package's numbers, for the parity tests, and
+``run_ranks``, which runs a function on several CPU ranks of a gloo
+process group (the multi-device tests).
 
 The reference initialises with JAX's threefry RNG, which PyTorch cannot
 reproduce, so parity runs on shared weights: the reference's ``init``
@@ -70,3 +72,78 @@ def to_numpy(tree: Any) -> Any:
             t = t.float()
         return t.numpy()
     return tree_map(conv, tree)
+
+
+def shard_slice(spec, shape, coords: dict, sizes: dict) -> tuple:
+    """The index of a rank's shard of a tensor of ``shape`` laid out by
+    ``spec``: along each dimension an entry names, chunk ``i`` of
+    ``prod(sizes[a])`` equal chunks, ``i`` the rank's index over the
+    entry's axes (``coords``), the first axis outermost; a dimension of
+    size 1 is whole."""
+    from repro_torch.sharding.rules import axes_of
+
+    idx = []
+    for d, n in enumerate(shape):
+        axes = axes_of(spec[d]) if d < len(spec) else ()
+        if not axes or n == 1:
+            idx.append(slice(None))
+            continue
+        i, k = 0, 1
+        for a in axes:
+            i, k = i * sizes[a] + coords[a], k * sizes[a]
+        idx.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(idx)
+
+
+def _rank_main(rank: int, fn, world: int, workdir: str, args: tuple,
+               timeout: float) -> None:
+    import datetime
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout))
+    try:
+        out = fn(rank, world, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(fn, world: int, workdir, *args, timeout: float = 120.0) -> list:
+    """``fn(rank, world, *args)`` on ``world`` spawned CPU processes joined
+    in one gloo process group (initialised through a file in ``workdir``,
+    never a TCP port); returns each rank's result, in rank order.  A rank
+    that raises fails the call with its traceback; ranks still running
+    after ``timeout`` seconds are killed and the call raises
+    ``TimeoutError`` (a hung collective fails, never hangs).  ``fn`` must
+    be importable by name (a module-level function)."""
+    import os
+    import pickle
+    import time
+
+    import torch.multiprocessing as mp
+
+    workdir = os.path.abspath(str(workdir))
+    os.makedirs(workdir, exist_ok=True)
+    ctx = mp.start_processes(_rank_main, args=(fn, world, workdir, args,
+                                               timeout),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=0.5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"{world} ranks still ran after {timeout} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out

@@ -30,6 +30,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # elements of one block of the update (f32 temporaries of ~128 MB each)
@@ -143,6 +144,11 @@ def init_opt_state(cfg: OptConfig, params: Any) -> dict:
             "count": count}
 
 
+def _local(t):
+    """A replicated DTensor scalar's value on this rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
@@ -156,7 +162,11 @@ def reduce_grad(cfg: OptConfig, g: torch.Tensor) -> torch.Tensor:
 
 
 def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict):
-    """One AdamW step, in place. Returns (params, state, stats)."""
+    """One AdamW step, in place. Returns (params, state, stats).  DTensor
+    leaves (a mesh) update shard by shard on each rank, the gradient
+    first laid out as its parameter (a reduce-scatter or all-reduce of a
+    partial sum); int8 moments, whose per-row scales span a row's shards,
+    update as DTensors."""
     grads = tree_map(lambda g: reduce_grad(cfg, g), grads)
     count = state["count"] + 1
     gnorm = global_norm(grads)
@@ -173,7 +183,10 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict):
     int8 = cfg.moment_dtype == "int8"
     mdt = torch.float32 if int8 else _DTYPES[cfg.moment_dtype]
 
-    def upd(p, g, m, v, ms, vs, decay):
+    scalars = (scale, lr, bc1, bc2)
+
+    def upd(p, g, m, v, ms, vs, decay, scalars=scalars):
+        scale, lr, bc1, bc2 = scalars
         g = g.float() * scale
         m32 = _dq8(m, ms) if int8 else m.float()
         v32 = _dq8_log(v, vs) if int8 else v.float()
@@ -193,11 +206,23 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict):
         return new_p, m32.to(mdt), v32.to(mdt), None, None
 
     def upd_leaf(p, g, m, v, ms, vs):
+        if is_dtensor(p) and not int8:
+            # every operation is element-wise: each rank updates its own
+            # shards (the gradient in the parameter's layout, the
+            # moments in it already) with the replicated scalars
+            g = g.redistribute(p.device_mesh, p.placements)
+            upd_local(*(t.to_local() for t in (p, g, m, v)), None, None,
+                      tuple(_local(s) for s in scalars))
+            return (p, m, v, ms, vs)
+        return upd_local(p, g, m, v, ms, vs, scalars)
+
+    def upd_local(p, g, m, v, ms, vs, scalars):
         outs = (p, m, v, ms, vs)
         # no decay on norms/bias (rank < 2), as in the reference
         decay = bool(cfg.weight_decay) and p.ndim >= 2
         blocks = [None]
-        if p.ndim >= 2 and all(t is None or t.is_contiguous() for t in outs):
+        if (p.ndim >= 2 and not is_dtensor(p)
+                and all(t is None or t.is_contiguous() for t in outs)):
             rows = p.numel() // p.shape[-1]
             per = max(1, _UPDATE_BLOCK // max(p.shape[-1], 1))
             blocks = [(r, min(r + per, rows)) for r in range(0, rows, per)]
@@ -208,7 +233,8 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any, state: dict):
             return t.reshape(-1, t.shape[-1])[blk[0]:blk[1]]
 
         for blk in blocks:
-            new = upd(*(at(t, blk) for t in (p, g, m, v, ms, vs)), decay)
+            new = upd(*(at(t, blk) for t in (p, g, m, v, ms, vs)), decay,
+                      scalars)
             for dst, val in zip(outs, new):
                 if dst is not None:
                     at(dst, blk).copy_(val)

@@ -34,10 +34,13 @@ of each.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.launch.mesh import is_dtensor, replicating
+from repro_torch.models.layers import shard_batch_dim
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.train.optimizer import (OptConfig, apply_updates,
                                          init_opt_state, reduce_grad)
@@ -55,18 +58,58 @@ def value_and_grad(bundle: ModelBundle) -> Callable:
         batch = _on(params, batch)
         leaves, treedef = tree_flatten(params)
         ps = [t.detach().requires_grad_(True) for t in leaves]
-        with torch.enable_grad():
+        with torch.enable_grad(), _replicating(leaves):
             loss, metrics = loss_fn(tree_unflatten(treedef, ps), batch)
+            loss = _replicated(loss)
             grads = torch.autograd.grad(loss, ps)
         metrics = tree_map(torch.Tensor.detach, metrics)
-        return tree_unflatten(treedef, list(grads)), loss.detach(), metrics
+        grads = [_like(g, p) for g, p in zip(grads, leaves)]
+        return tree_unflatten(treedef, grads), loss.detach(), metrics
     return f
 
 
+def _replicating(leaves):
+    """On a mesh, plain tensors met among DTensors count as replicated,
+    in the forward and in the backward's recomputation (``remat``)."""
+    if not any(is_dtensor(t) for t in leaves):
+        return contextlib.nullcontext()
+    return replicating()
+
+
+def _replicated(t):
+    """A DTensor loss summed over the ranks that hold parts of it (the
+    rows of the data shards) and replicated: its gradient then seeds every
+    rank once."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _like(g, p):
+    """A DTensor gradient in its parameter's layout: the partial sums
+    over the ranks that shared the parameter are reduced here (an
+    all-reduce, or a reduce-scatter onto an fsdp shard)."""
+    if not is_dtensor(g) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def _on(params: Any, batch: dict) -> dict:
-    """The batch's arrays as tensors on the parameters' device."""
+    """The batch's arrays as tensors on the parameters' device (a DTensor
+    batch stays as it is)."""
     dev = tree_flatten(params)[0][0].device
-    return tree_map(lambda x: torch.as_tensor(x, device=dev), batch)
+    return tree_map(lambda x: x if is_dtensor(x)
+                    else torch.as_tensor(x, device=dev), batch)
+
+
+def _zeros(p, dtype):
+    """Zeros of ``p``'s shape in ``dtype`` (a DTensor in ``p``'s
+    layout)."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
 
 def _accumulate(acc: Any, grads: Any) -> Any:
@@ -82,26 +125,39 @@ def _average(opt_cfg: OptConfig, acc: Any, k: int) -> Any:
     return tree_map(lambda a: reduce_grad(opt_cfg, a / k), acc)
 
 
-def _split_microbatches(batch: dict, k: int) -> list:
+def _split_microbatches(batch: dict, k: int, mesh=None,
+                        dp_axes: tuple = ()) -> list:
+    """The batch's k microbatches of consecutive rows.  On a mesh each
+    microbatch is pinned batch-sharded over ``dp_axes`` again (the
+    reference's re-pin after the reshape): a DTensor leaf is replicated
+    first (the batch's rows move between ranks), then every microbatch
+    takes its own rows."""
     def r(x):
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch {b} is not a multiple of {k} "
                              "microbatches")
+        if is_dtensor(x):
+            x = _replicated(x)
         return x.reshape(k, b // k, *x.shape[1:])
 
     mbs = tree_map(r, batch)
-    return [tree_map(lambda x: x[i], mbs) for i in range(k)]
+    return [tree_map(lambda x: shard_batch_dim(x[i], mesh, dp_axes), mbs)
+            for i in range(k)]
 
 
 def make_train_step(bundle: ModelBundle, opt_cfg: OptConfig,
                     num_microbatches: int = 1,
-                    accum_dtype: str = "float32") -> Callable:
+                    accum_dtype: str = "float32", mesh=None,
+                    dp_axes: tuple = ()) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics), updating params and opt_state in place.  Over several
     microbatches ``metrics["loss"]`` is their mean and
     ``metrics["last_loss"]`` the last one's, the loss the chunked programs'
-    last ``grad_step`` returns (``TrainTask``'s ``final_loss``)."""
+    last ``grad_step`` returns (``TrainTask``'s ``final_loss``).  On a
+    mesh (DTensor parameters, moments and batch; ``mesh`` and ``dp_axes``
+    pin the microbatches) the parameters and moments keep the layouts
+    they came in."""
     vg = value_and_grad(bundle)
     adt = _ACCUM[accum_dtype]
 
@@ -110,10 +166,10 @@ def make_train_step(bundle: ModelBundle, opt_cfg: OptConfig,
             grads, _, metrics = vg(params, batch)
             metrics = dict(metrics)
         else:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                 device=p.device), params)
+            acc = tree_map(lambda p: _zeros(p, adt), params)
             loss_sum = None
-            mbs = _split_microbatches(_on(params, batch), num_microbatches)
+            mbs = _split_microbatches(_on(params, batch), num_microbatches,
+                                      mesh, dp_axes)
             for mb in mbs:
                 g, loss, _ = vg(params, mb)
                 acc = _accumulate(acc, g)
@@ -150,8 +206,7 @@ def make_chunked_train_fns(bundle: ModelBundle, opt_cfg: OptConfig,
     adt = _ACCUM[accum_dtype]
 
     def grad_init(params):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                              device=p.device), params)
+        return tree_map(lambda p: _zeros(p, adt), params)
 
     def grad_step(params, grad_acc, microbatch):
         g, loss, _ = vg(params, microbatch)

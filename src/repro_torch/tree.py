@@ -1,7 +1,8 @@
 """Minimal pytree helpers over dict / list / tuple nests of tensors.
 
 Dict keys are visited in sorted order (as in JAX), ``None`` is an empty
-node, everything else is a leaf.  The recursions are module-level
+node, everything else is a leaf, a tuple whose class sets ``tree_leaf``
+(``sharding.rules.PartitionSpec``) too.  The recursions are module-level
 functions: a nested function that calls itself is a reference cycle, and
 one that closed over the leaves kept every tensor it had seen alive until
 the cyclic garbage collector ran (device memory that looked leaked)."""
@@ -11,6 +12,11 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 
+def _is_seq(t) -> bool:
+    return isinstance(t, (list, tuple)) and not getattr(t, "tree_leaf",
+                                                         False)
+
+
 def _flatten(t, leaves: List[Any]):
     if t is None:
         return None
@@ -18,7 +24,7 @@ def _flatten(t, leaves: List[Any]):
         keys = sorted(t)
         return ("dict", tuple(keys), tuple(_flatten(t[k], leaves)
                                            for k in keys))
-    if isinstance(t, (list, tuple)):
+    if _is_seq(t):
         return (type(t).__name__, len(t),
                 tuple(_flatten(x, leaves) for x in t))
     leaves.append(t)
@@ -46,7 +52,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         out = [tree_map(fn, x, *(r[i] for r in rest))
                for i, x in enumerate(tree)]
         return type(tree)(out)
@@ -73,3 +79,17 @@ def tree_unflatten(treedef: Any, leaves) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return tree
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` leaf-wise: ``path`` is the tuple of dict keys
+    (str) and sequence indices (int) from the root to the leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], path + (k,))
+                for k in tree}
+    if _is_seq(tree):
+        return type(tree)(tree_map_with_path(fn, x, path + (i,))
+                          for i, x in enumerate(tree))
+    return fn(path, tree)

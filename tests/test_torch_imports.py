@@ -1,11 +1,12 @@
 """Import hygiene and device rules of the PyTorch port.
 
-``repro_torch`` imports with ``jax`` blocked and loads no module of the
-reference package; ``chip_smoke.py`` and ``train_memory.py`` import
-neither.  Nothing picks the CPU on its own: a CUDA request on a host
+``repro_torch`` imports with ``jax`` blocked, loads no module of the
+reference package and starts no process group; ``chip_smoke.py`` and
+``train_memory.py`` import neither.  Nothing picks the CPU on its own: a CUDA request on a host
 without a card raises, and a missing ``nvcc`` is an error, never a
 fallback.  ``chip_smoke.py``'s ``disagg``, ``dense_archs``, ``moe``, ``mla``,
-``families`` and ``launch`` phases rehearse on the CPU at smoke size.
+``families``, ``launch`` and ``mesh`` phases rehearse on the CPU at smoke
+size.
 No module sets an environment variable when it is imported (the
 reference's ``launch/roofline.py`` and ``launch/dryrun.py`` set
 ``XLA_FLAGS``; the port's do not).
@@ -36,6 +37,8 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert dict(os.environ) == env, "a module set an environment variable"
+import torch.distributed as dist
+assert not dist.is_initialized(), "a module started a process group"
 print(" ".join(names))
 """
 
@@ -58,7 +61,9 @@ _EXPECTED = {"repro_torch.train.data", "repro_torch.train.optimizer",
              "repro_torch.launch", "repro_torch.launch.steps",
              "repro_torch.launch.op_stats", "repro_torch.launch.roofline",
              "repro_torch.launch.dryrun", "repro_torch.launch.serve",
-             "repro_torch.launch.train"}
+             "repro_torch.launch.train", "repro_torch.launch.mesh",
+             "repro_torch.sharding", "repro_torch.sharding.rules",
+             "repro_torch.ckpt.resharding"}
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -338,3 +343,37 @@ def test_chip_smoke_launch_phase_rehearses_on_the_cpu():
         assert d["d"][cell]["bound_s"] > 0
     assert set(d["d"]["remat_peaks"]) == {"none", "full", "dots"}
     assert not any(state["launches"]["launch"].values())
+
+
+def test_chip_smoke_mesh_phase_rehearses_on_the_cpu():
+    """The ``mesh`` phase's code path on the smoke archs on the CPU, on a
+    one-rank gloo group: (a) the train steps under the three policies
+    equal the mesh-less step to the bit, (b) the snapshot restored onto
+    the mesh equals it and the mesh cells' greedy tokens equal the
+    mesh-less cells', (c) the MoE block under "local" and "a2a" equals
+    the mesh-less dispatch (launch counts, peaks and the budget only on
+    the card); the group is closed after the phase."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    if dist.is_initialized():
+        pytest.skip("a process group is open in this process")
+    state = {}
+    chip_smoke.phase_mesh(state, device="cpu", cut=dict(
+        train=dict(arch="yi-9b-smoke", layers=None, seq=32, batch=4),
+        serve=dict(arch="yi-9b-smoke", layers=None, prompt=16, tokens=4),
+        moe=dict(arch="deepseek-moe-16b-smoke", seq=16)))
+    d = state["mesh"]
+    assert not dist.is_initialized()
+    for policy in ("tp", "fsdp_tp", "fsdp"):
+        r = d["a"][policy]
+        assert r["loss_equal"] and r["params_equal"] and r["placements_kept"]
+    assert d["b"]["restored_equal"] and d["b"]["tokens_equal"]
+    assert d["b"]["new_tokens"] == 4
+    for dispatch in ("local", "a2a"):
+        assert d["c"][dispatch]["out_equal"] and d["c"][dispatch]["aux_equal"]
+    assert not any(state["launches"]["mesh"].values())
