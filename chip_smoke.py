@@ -18,14 +18,15 @@ caught):
    at the engine's B 1 admissions) and, in bf16, qwen3-8b's (32/8), K1's
    paged
    entry at the engine's decode shape (8 lanes at ragged positions over
-   pages of 16 scattered through a 288-page pool, and the 8 idle rows that
-   pad the decode to 16 rows), K3 at mamba2-1.3b's
+   pages of 16 scattered through a 288-page pool), at engine run (d)'s
+   (``DECODE_ROWS``, 64 lanes) and at twice that (128 lanes), K3 at
+   mamba2-1.3b's
    (bf16 on its mma route, f32 on the CUDA cores), K4 at
    recurrentgemma-9b's, plus ragged, small and edge cases (K1: wholly
    masked splits, one lane; K1 paged: pages of 4, an inactive lane, a
    position on a page boundary, positions past the mapped span, a window,
    every lane inactive (the floor, timed), the disagg phase's decode
-   replica (14 lanes and 2 idle rows, tables of 37 pages over 518,
+   replica (14 lanes, tables of 37 pages over 518,
    timed), each case
    logging the route ``paged_plan`` gave it;
    K2: Sq 1/127/129/200, windows ending on a tile
@@ -67,10 +68,12 @@ caught):
    of its 48 layers (``phase_engine``; the orch phase runs it at full
    depth): 24 requests through RequestRouter ->
    EngineServeTask -> FunkyRuntime, single-step and 8 steps fused, and on
-   a monitor with evict/resume every 16 iterations; identical tokens,
-   exact launch counts (paged K1 12 per decode step, K2 12 per prefill,
-   dense K1 none), OOM preemption and compaction, page-granular evicts,
-   kernel-path logits against the plain path's, one traced decode step;
+   a monitor with evict/resume every 16 iterations, and (d) 64 requests
+   on a 64-lane engine (run (a)'s 24 among them); identical tokens ((d):
+   run (a)'s for its 24), exact launch counts (paged K1 12 per decode
+   step, K2 12 per prefill, dense K1 none; (d) by shape), OOM preemption
+   and compaction, page-granular evicts, kernel-path logits against the
+   plain path's at 8 lanes and at 64, one traced decode step of each;
 15. the engine's features at full-width yi-9b cut to 12 of its 48
    layers (``phase_features``, budget
    240 s and 45 GB peak, both gated): (d) the engine phase's first 8
@@ -122,10 +125,12 @@ caught):
    second slice at chunk 3; fig09's wait from an evict request to the park
    (4 chunks against 1, at 2 layers); (d) the three smoke archs
    checkpointed mid-accumulation and restored in a fresh runtime; (e) one
-   ``grad_step`` on the card against the CPU in f32 (2 layers, seq 256).
-   Gates: (b) equals (a) bit for bit, (c) equals (b), each (d) an
-   uninterrupted run; (e) within 1e-5 (loss) and 1e-4 (gradients); no
-   kernel launched; under 150 s and 45 GB;
+   f32 ``grad_step`` on the card (2 layers, seq 256) against the CPU's in
+   a child process whose CPU kernels are pinned (``PINNED_CPU_ENV``: the
+   same loss bits and gradient digest on every host, printed).  Gates:
+   (b) equals (a) bit for bit, (c) equals (b), each (d) an uninterrupted
+   run; (e) within 1e-5 (loss) and 1e-4 (gradients); no kernel launched;
+   under 150 s and 45 GB;
 20. the remaining dense archs (``phase_dense_archs``, budget 200 s,
    gated): qwen3-8b, stablelm-3b and starcoder2-15b at full width cut to
    a quarter of their depth, one after another: (a) served through the runtime
@@ -156,8 +161,11 @@ caught):
    kernel side and decompressed decode on the plain side: served through
    the runtime, absorbed against decompressed, the engine on 8 requests
    over a pool of latent pages single-step and fused, a paged step's and
-   each bucket's prefill's logits, the expert layer's device time; MLA
-   has no kernel, and any launch fails the phase;
+   each bucket's prefill's logits, the expert layer's device time; then
+   over latent pages (``_mla_features``) (e) a prefix hit with its cold
+   run's tokens, (f) a speculative run of k 2 and (g) a prefill replica's
+   lanes handed to a decode replica, each with the engine run's tokens;
+   MLA has no kernel, and any launch fails the phase;
 23. the last two families (``phase_families``, budget 150 s and 45 GB
    peak, both gated), each at full width and depth on random weights:
    (a) seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 16/16
@@ -431,6 +439,7 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+    t0 = time.perf_counter()
     Skv = S if Skv is None else Skv
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dt = getattr(torch, dtype)
@@ -476,6 +485,7 @@ def _flash_case(state, tag, B, S, Hq, Hkv, hd, dtype, causal=True, window=0,
             bound_ms=bound,
             bound_by="operations" if flops / PEAK_FLOP_S[dtype]
             > nbytes / PEAK_BYTES_S else "bytes")
+    rec["case_s"] = time.perf_counter() - t0
     log(phase="kernels", kernel="K2 flash_attention", **rec)
     state.setdefault("k2", {})[tag] = rec
 
@@ -569,6 +579,7 @@ def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
                                                           split_plan)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
+    t0 = time.perf_counter()
     lanes = isinstance(pos, list)
     sets, kv_pos, posv = _decode_inputs(B, cap, Hq, Hkv, hd, pos, dtype)
     q, k, v = sets[0]
@@ -619,6 +630,7 @@ def _decode_case(state, tag, B, cap, Hq, Hkv, hd, pos, dtype, window=0,
             bytes=nbytes, flops=flops, bound_ms=bound,
             bound_by="operations" if flops / PEAK_FLOP_S[dtype]
             > nbytes / PEAK_BYTES_S else "bytes")
+    rec["case_s"] = time.perf_counter() - t0
     log(phase="kernels", kernel="K1 decode_attention", **rec)
     state.setdefault("k1", {})[tag] = rec
 
@@ -721,6 +733,7 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_paged_ref
 
+    t0 = time.perf_counter()
     sets, kvp, bt, posv, kept, mapped = _paged_inputs(
         B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype, inactive,
         n_sets=12 if time_it else 1)
@@ -763,22 +776,28 @@ def _paged_case(state, tag, B, ps, max_blocks, NP, Hq, Hkv, hd, pos, dtype,
             q, k, v, kvp, bt, posv, **kw)
         lib = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=m, enable_gqa=True)
+        # the yardsticks work lane by lane on the host (one gather and one
+        # launch a row): two of the input sets and fewer rounds keep them
+        # to seconds at 64 and 128 rows
+        few = args[:2]
         rec.update(
             ms=bench_ms(kern, args),
             device_ms=device_ms(kern, args, expect="decode_split_kernel"
                                 if route == "slots" else
                                 "decode_paged_kernel"),
             plain_ms=bench_ms(lambda q, k, v: decode_attention_paged_ref(
-                q, k, v, kvp, bt, posv, **kw), args, reps=5),
+                q, k, v, kvp, bt, posv, **kw), few, reps=3),
             gather_dense_ms=device_ms(lambda q, k, v: _gather_dense(
-                q, k, v, kvp, bt, posv), args),
+                q, k, v, kvp, bt, posv), few, reps=3),
             # no PyTorch call reads pages in place: SDPA on lanes gathered
             # beforehand is the yardstick, the gather untimed
             library_ms=None, library_gathered_device_ms=device_ms(
-                lib, _gathered_sdpa_sets(sets[:4], kvp, bt, posv, window)),
+                lib, _gathered_sdpa_sets(sets[:2], kvp, bt, posv, window)),
+            yardstick_sets=len(few), timed_sets=len(args),
             bytes=nbytes, flops=flops, bound_ms=bound,
             bound_by="operations" if flops / PEAK_FLOP_S[dtype]
             > nbytes / PEAK_BYTES_S else "bytes")
+    rec["case_s"] = time.perf_counter() - t0
     log(phase="kernels", kernel="K1 decode_attention_paged", **rec)
     state.setdefault("k1p", {})[tag] = rec
 
@@ -936,6 +955,8 @@ def _rglru_case(state, tag, B, S, W, time_it=False):
 def phase_kernels(state):
     import torch
 
+    from repro_torch.models.transformer import DECODE_ROWS
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # K2 at the prefill shape of the serving path, then the variants
@@ -998,20 +1019,26 @@ def phase_kernels(state):
                  window=2048, time_it=True)
     # K1's paged entry at the engine's decode shape: 8 lanes at ragged
     # positions over pages of 16 scattered through a 288-page pool, table
-    # width 36 (prompt 512 + 64 tokens), unmapped tails, and the 8 idle
-    # rows that pad the decode to DECODE_ROWS (16); then page size 4, an
-    # inactive lane, a position on a page boundary, positions past the
-    # mapped span, a window
-    _paged_case(state, "path", 16, 16, 36, 288, 32, 4, 128,
-                ENGINE_PAGED_POS + [0] * 8, "bfloat16",
-                inactive=tuple(range(8, 16)), time_it=True)
+    # width 36 (prompt 512 + 64 tokens), unmapped tails (K1 paged runs
+    # over the lanes alone, never the idle rows that pad the decode's
+    # products to DECODE_ROWS); then page size 4, an inactive lane, a
+    # position on a page boundary, positions past the mapped span, a window
+    _paged_case(state, "path", 8, 16, 36, 288, 32, 4, 128, ENGINE_PAGED_POS,
+                "bfloat16", time_it=True)
     _paged_case(state, "path_f32", 8, 16, 36, 288, 32, 4, 128,
                 ENGINE_PAGED_POS, "float32", time_it=True)
     # the floor: the engine's shape with every lane inactive (launch, table
     # row, merge; no page read)
-    _paged_case(state, "floor_inactive", 16, 16, 36, 288, 32, 4, 128,
-                ENGINE_PAGED_POS + [0] * 8, "bfloat16",
-                inactive=tuple(range(16)), time_it=True)
+    _paged_case(state, "floor_inactive", 8, 16, 36, 288, 32, 4, 128,
+                ENGINE_PAGED_POS, "bfloat16", inactive=tuple(range(8)),
+                time_it=True)
+    # the engine phase's run (d): DECODE_ROWS lanes; and twice as many,
+    # where the decode runs its products in two blocks of DECODE_ROWS
+    for case, lanes in (("engine_d", DECODE_ROWS),
+                        ("rows_2r", 2 * DECODE_ROWS)):
+        _paged_case(state, case, lanes, 16, 36, 36 * lanes, 32, 4, 128,
+                    [ENGINE_PAGED_POS[i % 8] for i in range(lanes)],
+                    "bfloat16", time_it=True)
     _paged_case(state, "ps4_inactive_boundary", 4, 4, 40, 160, 32, 4, 128,
                 [100, 64, 159, 12], "bfloat16", inactive=(1,))
     _paged_case(state, "past_span", 3, 16, 8, 32, 32, 4, 128,
@@ -1021,21 +1048,20 @@ def phase_kernels(state):
     # the features phase's new call patterns: the paged entry at one lane
     # (prefill_chunk: page 3 of a 64-token prompt, a table row of 5 pages
     # of 16), verify's k+1 = 4 steps whose windows cross page boundaries
-    # (8 lanes and 8 idle rows, table width 11 = prompt 128 + 32 + 3), and
+    # (8 lanes, table width 11 = prompt 128 + 32 + 3), and
     # the dense entry
     # with per-lane positions at the draft lanes' shape (rings of 163
     # slots) and the reserved lanes' (160)
     _paged_case(state, "chunk_b1", 1, 16, 5, 40, 32, 4, 128, [53],
                 "bfloat16", time_it=True)
-    # the disagg phase's decode replica: 14 lanes and 2 idle rows, tables
-    # of 37 pages of 16 over its 518-page pool
-    _paged_case(state, "disagg_decode", 16, 16, 37, 518, 32, 4, 128,
-                DISAGG_PAGED_POS + [0] * 2, "bfloat16", inactive=(14, 15),
-                time_it=True)
+    # the disagg phase's decode replica: 14 lanes, tables of 37 pages of
+    # 16 over its 518-page pool
+    _paged_case(state, "disagg_decode", 14, 16, 37, 518, 32, 4, 128,
+                DISAGG_PAGED_POS, "bfloat16", time_it=True)
     for i in range(4):
-        _paged_case(state, f"verify_w{i}", 16, 16, 11, 88, 32, 4, 128,
-                    [p + i for p in VERIFY_PAGED_POS] + [0] * 8, "bfloat16",
-                    inactive=tuple(range(8, 16)), time_it=i == 0)
+        _paged_case(state, f"verify_w{i}", 8, 16, 11, 88, 32, 4, 128,
+                    [p + i for p in VERIFY_PAGED_POS], "bfloat16",
+                    time_it=i == 0)
     _decode_case(state, "draft", 8, 163, 32, 4, 128,
                  [128, 150, 131, 140, 159, 129, 133, 147], "bfloat16",
                  time_it=True)
@@ -1050,7 +1076,7 @@ def phase_kernels(state):
     # second 64-column sub-tile zero past column 80, scale 80^-0.5) and
     # starcoder2-15b (48/4: group 12, two 8-head n-tiles in K1 paged); K2
     # at the serving prefill, K1 dense at its decode (cap 512 + 128, pos
-    # 600), K1 paged at the engine's decode (16 rows: 8 lanes, 8 idle);
+    # 600), K1 paged at the engine's decode (8 lanes);
     # qwen3-8b's (32/8) in bf16; bf16 timed, f32 checked only
     for tag, Hq, Hkv, hd, dtypes in (
             ("hd80", 32, 32, 80, ("bfloat16", "float32")),
@@ -1062,9 +1088,8 @@ def phase_kernels(state):
             _flash_case(state, case, 8, 512, Hq, Hkv, hd, dt, time_it=t)
             _decode_case(state, case, 8, 640, Hq, Hkv, hd, 600, dt,
                          time_it=t)
-            _paged_case(state, case, 16, 16, 36, 288, Hq, Hkv, hd,
-                        ENGINE_PAGED_POS + [0] * 8, dt,
-                        inactive=tuple(range(8, 16)), time_it=t)
+            _paged_case(state, case, 8, 16, 36, 288, Hq, Hkv, hd,
+                        ENGINE_PAGED_POS, dt, time_it=t)
     # the moe phase's deepseek-moe-16b (MHA, 16/16 heads of 128): the same
     # three shapes, bf16 timed (same bits on repeat), f32 checked against
     # the plain version; K2 also at the engine's B 1 admissions
@@ -1073,9 +1098,8 @@ def phase_kernels(state):
         t = dt == "bfloat16"
         _flash_case(state, case, 8, 512, 16, 16, 128, dt, time_it=t)
         _decode_case(state, case, 8, 640, 16, 16, 128, 600, dt, time_it=t)
-        _paged_case(state, case, 16, 16, 36, 288, 16, 16, 128,
-                    ENGINE_PAGED_POS + [0] * 8, dt,
-                    inactive=tuple(range(8, 16)), time_it=t)
+        _paged_case(state, case, 8, 16, 36, 288, 16, 16, 128,
+                    ENGINE_PAGED_POS, dt, time_it=t)
     for P in ENGINE["prompt_buckets"]:
         _flash_case(state, f"mha128_engine_p{P}", 1, P, 16, 16, 128,
                     "bfloat16", time_it=True)
@@ -1645,6 +1669,12 @@ ENGINE = dict(arch="yi-9b", layers=12, slots=8, page_size=16,
               pool_pages=160, n_requests=24)
 
 
+# run (d): the engine at 64 lanes, pages enough for every lane's whole
+# context (64 x 37), serving 64 requests of the same generator (the first
+# 24 are runs (a)-(c)'s)
+ENGINE_D = dict(ENGINE, slots=64, pool_pages=64 * 37, n_requests=64)
+
+
 def engine_requests(vocab, n=ENGINE["n_requests"]):
     """The engine phase's workload (``n`` requests), from seed 0."""
     import numpy as np
@@ -1950,6 +1980,80 @@ def _prefill_logit_check(eng, mon, cfg, capture=None):
     return out
 
 
+def _engine_wide(arch, device, ec=ENGINE_D, logit_at=6):
+    """Run (d): ``ec``'s requests on ``ec``'s lanes, the engine on a
+    monitor (``equivalence.run_transcript``); at iteration ``logit_at``
+    (every lane of run (d) busy: its shortest request decodes 8 tokens),
+    one paged decode step's kernel-vs-plain logit check, timed and traced
+    (``_paged_logit_check``).  Gates: every request's
+    token count; K1 paged once an attention layer a decode step, every
+    launch at the padded rows of ``ec["slots"]`` lanes; K2 once an
+    attention layer an admission, every launch at batch 1 and a prompt
+    bucket.  Returns ({rid: tokens}, stats, the logit check)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_paged
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.equivalence import run_transcript
+
+    cfg = get_arch(arch)
+    checks = []
+
+    def factory():
+        mon = Monitor("engine-d", SliceAllocator("node0", 1,
+                                                 mem_cap_bytes=64 << 30,
+                                                 device=device),
+                      telemetry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(arch, FunkyCL(mon), seed=SEED,
+                                       engine_id="engine-d",
+                                       **_engine_kw(ec))
+        eng.setup()
+        _zero_counts()
+        return mon, eng
+
+    def hook(eng, mon, i):
+        if i == logit_at:
+            checks.append(_paged_logit_check(eng, mon, cfg)
+                          if device == "cuda" else {})
+            checks[0].update(at_iteration=i, active=eng.active_count)
+
+    t0 = time.perf_counter()
+    tokens, eng = run_transcript(
+        factory, lambda: engine_requests(cfg.vocab_size, ec["n_requests"]),
+        step_hook=hook)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    launches.pop("K1p_b1")
+    steps, prefills = _check_engine_run("d", cfg, eng, tokens, 1, launches,
+                                        device, ec)
+    stats = _engine_stats(eng, list(eng.completed.values()), wall, steps,
+                          prefills, launches)
+    rows = ec["slots"]
+    L = _attn_layers(cfg)
+    k1p = dict(decode_attention_paged.launches_by_shape)
+    k2 = dict(flash_attention.launches_by_shape)
+    stats.update(rows=rows, k1p_by_shape=[[list(k), n] for k, n in
+                                          k1p.items()],
+                 k2_by_shape=[[list(k), n] for k, n in k2.items()])
+    want_k1p = {(rows, eng.max_blocks): L * steps}
+    if device == "cuda" and (
+            k1p != want_k1p or sum(k2.values()) != L * prefills
+            or any(k[0] != 1 or k[1] not in ec["prompt_buckets"]
+                   for k in k2)):
+        raise AssertionError(f"engine d: K1 paged by shape {k1p} (want "
+                             f"{want_k1p}), K2 by shape {k2} (want "
+                             f"{L * prefills} at batch 1 and a bucket)")
+    if not checks:
+        raise AssertionError(f"engine d: ended before iteration {logit_at}")
+    del eng
+    if device == "cuda":
+        _free_cuda()
+    return tokens, stats, checks[0]
+
+
 def _engine_evicting(arch, device, logit_at=6, every=16):
     """Run (c): the same workload through the engine on a monitor, evicted
     and resumed every ``every`` iterations while lanes are in flight
@@ -2009,16 +2113,20 @@ def _engine_evicting(arch, device, logit_at=6, every=16):
 def phase_engine(state, arch=ENGINE["arch"], device="cuda"):
     """yi-9b at full width cut to ``ENGINE["layers"]`` of its 48 layers
     (bf16, random weights from seed 0) served by the
-    paged engine three ways: (a) single-step decode and (b) 8 steps fused
+    paged engine four ways: (a) single-step decode and (b) 8 steps fused
     per EXECUTE with one EXECUTE in flight, both through
     RequestRouter -> EngineServeTask -> FunkyRuntime; (c) run (a) on a
     monitor with evict/resume every 16 iterations (each resume copies the
-    weights back, 5.26 GB at 12 layers).  Gates: every request
-    completes with its token count, the three transcripts are identical,
-    exact launch counts, at least one OOM preemption and one compaction,
+    weights back, 5.26 GB at 12 layers); (d) 64 requests on a 64-lane
+    engine on a monitor (``ENGINE_D``).  Gates: every request
+    completes with its token count, the three transcripts are identical
+    and (d) gives run (a)'s 24 requests run (a)'s tokens,
+    exact launch counts ((d): K1 paged and K2 at their shapes), at least
+    one OOM preemption and one compaction,
     an evict that saves fewer pages than the pool, and the logits of a
-    paged decode step and of each bucket's prefill (K2 at batch 1) on the
-    kernel path within LOGIT_REL_TOL of the plain path's."""
+    paged decode step (at 8 lanes and, in (d), at 64) and of each bucket's
+    prefill (K2 at batch 1) on the kernel path within LOGIT_REL_TOL of the
+    plain path's."""
     with _depth_cut(arch, ENGINE["layers"]) as cut:
         _engine_phase(state, cut, device)
 
@@ -2033,7 +2141,11 @@ def _engine_phase(state, arch, device):
         evicts=len(evicts), evict_first=evicts[0] if evicts else None,
         evict_last=evicts[-1] if evicts else None, logit_check=checks,
         prefill_logit_check=prefill_checks, **c)
-    for tag, tok in (("b", b_tok), ("c", c_tok)):
+    d_tok, d, d_check = _engine_wide(arch, device)
+    log(phase="engine", run="d_64_lanes", card=state.get("card"),
+        logit_check=d_check, a_step=checks[0] if checks else None, **d)
+    for tag, tok in (("b", b_tok), ("c", c_tok),
+                     ("d", {r: d_tok[r] for r in a_tok})):
         if tok != a_tok:
             bad = sorted(r for r in a_tok if tok.get(r) != a_tok[r])
             raise AssertionError(f"engine run {tag}: tokens differ from run "
@@ -2049,6 +2161,9 @@ def _engine_phase(state, arch, device):
     if device == "cuda" and (not checks or checks[0]["logit_rel_err"]
                              > LOGIT_REL_TOL):
         raise AssertionError(f"paged kernel vs plain logits: {checks}")
+    if device == "cuda" and d_check["logit_rel_err"] > LOGIT_REL_TOL:
+        raise AssertionError(f"run d: paged kernel vs plain logits at "
+                             f"{d_check['lanes']} lanes: {d_check}")
     if device == "cuda" and (
             len(prefill_checks) != len(ENGINE["prompt_buckets"])
             or any(p["logit_rel_err"] > LOGIT_REL_TOL
@@ -2056,7 +2171,7 @@ def _engine_phase(state, arch, device):
         raise AssertionError(f"prefill kernel vs plain logits: "
                              f"{prefill_checks}")
     state.setdefault("launches", {})["engine"] = a["launches"]
-    state["engine"] = {"a": a, "b": b, "c": c}
+    state["engine"] = {"a": a, "b": b, "c": c, "d": d}
     state["engine_tokens"], state["engine_arch"] = a_tok, arch
 
 
@@ -2581,7 +2696,7 @@ DISAGG = dict(arch="yi-9b", layers=12, prefill_slots=2, decode_slots=14,
               torn_at=(2, 5), max_phase_s=150,
               max_peak_gb=45, mem_cap=36 << 30)
 # K1's paged entry at the decode replica's shape: 14 lanes at ragged
-# positions (and 2 idle rows), tables of 37 pages of 16 (prompt 512 + 64
+# positions, tables of 37 pages of 16 (prompt 512 + 64
 # tokens + the fused span's 7 slots of headroom) over its pool of 14 x 37 =
 # 518 pages
 DISAGG_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498, 160, 289, 540,
@@ -2669,7 +2784,6 @@ def _disagg_run(dc, device, cfg, pair, reg, reqs, chaos=None, check=None):
 
     from repro_torch.kernels.decode_attention.ops import \
         decode_attention_paged
-    from repro_torch.models.transformer import DECODE_ROWS
     from repro_torch.scaling.serving import RequestRouter
     from repro_torch.serve.disagg import (M_HANDOFF, M_HANDOFF_FALLBACK,
                                           M_TRANSFER_BYTES, TransferQueue)
@@ -2752,7 +2866,7 @@ def _disagg_run(dc, device, cfg, pair, reg, reqs, chaos=None, check=None):
     for role, eng in (("prefill", engP), ("decode", engD)):
         per[role]["K1p"] = L * per[role]["decode_steps"]
         per[role]["K2"] = L * per[role]["admissions"]
-        shape = (-(-eng.slots // DECODE_ROWS) * DECODE_ROWS, eng.max_blocks)
+        shape = (eng.slots, eng.max_blocks)
         per[role]["k1p_shape"] = list(shape)
         per[role]["K1p_counted"] = by_shape.get(shape, 0)
         if per[role]["K1p"]:
@@ -3716,7 +3830,8 @@ def _orch(state, arch, device, root, m_arch):
 # state (bf16 params, f32 grad_acc, f32 m and v) is about 123 GB, over the
 # card's 80; 8 layers hold 1.908 B params, 26.7 GB of state.  The image:
 # seq 1024, global batch 8 in ``chunks`` microbatches, the image's default
-# OptConfig.  (e) holds the card against the CPU on ``e_layers`` in f32;
+# OptConfig.  (e) holds the card in f32 on ``e_layers`` against the CPU
+# under pinned kernels (``PINNED_CPU_ENV``);
 # fig09's wait runs at ``fig09_layers`` (chunks 1 would hold the whole
 # batch's activations at once); the smoke archs checkpoint and restore.
 TRAIN = dict(arch="yi-9b", layers=8, seq_len=1024, global_batch=8, chunks=4,
@@ -4119,7 +4234,7 @@ def _train(tc, device, root, names):
     log(phase="train", run="d", **out["d"])
 
     # (e) the port's grad_step on the card against the CPU, f32
-    out["e"] = _train_card_vs_cpu(tc, base, device, names)
+    out["e"] = _train_card_vs_cpu(tc, base, device, names, root)
     peak("e")
     log(phase="train", run="e", **out["e"])
     out["peak_gb_by_run"] = peaks
@@ -4153,11 +4268,149 @@ def _train_trace(fn):
     return res
 
 
-def _train_card_vs_cpu(tc, base, device, names):
-    """One ``grad_step`` of the port's own function on the CPU and on
-    ``device`` from the same weights (drawn on the CPU from the seed,
-    copied over), f32, no TF32: the link from the card's path to the CPU
-    path the tests hold against the JAX package."""
+# (e)'s CPU reference runs in a child process whose CPU kernels no host
+# changes: ATen's vector kernels at AVX2 (``ATEN_CPU_CAPABILITY``; at
+# AVX-512 its softmax and reductions sum in another order), MKL's GEMMs
+# under conditional numerical reproducibility at AVX2, strict (``MKL_CBWR``;
+# by default MKL picks its kernels by the host's ISA, and without STRICT by
+# the thread count), and a fixed thread count (ATen's reductions split by
+# it).  Every x86 host of the fleet has AVX2.
+PINNED_CPU_ENV = {"ATEN_CPU_CAPABILITY": "avx2", "MKL_CBWR": "AVX2,STRICT",
+                  "OMP_NUM_THREADS": "8", "MKL_NUM_THREADS": "8"}
+
+
+def _train_e_cfg(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{layers}of"
+                               f"{cfg.num_layers}-f32", num_layers=layers,
+                               dtype="float32")
+
+
+def _grads_digest(grads):
+    """sha256 of the gradients' f32 bytes, leaf by leaf in tree order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(grads):
+        h.update(t.detach().to("cpu", torch.float32).contiguous()
+                 .view(torch.int32).numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_e_reference(arch, layers, seq, out_path, dtype="float32"):
+    """(e)'s CPU reference, in the process that calls it: one
+    ``grad_step`` of ``arch`` cut to ``layers`` (weights drawn in f32 on
+    the CPU from ``SEED``, computed in ``dtype``) on ``make_batch``'s
+    batch of one row of ``seq`` tokens.  Writes the gradients, rounded to
+    f32, to ``out_path`` (``torch.save``; None: not written) and returns
+    the loss (f32 bits as hex), the gradients' digest and the seconds."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import (OptConfig, make_batch,
+                                   make_chunked_train_fns)
+    from repro_torch.tree import tree_map
+
+    torch.set_num_threads(int(PINNED_CPU_ENV["OMP_NUM_THREADS"]))
+    cfg = _train_e_cfg(arch, layers)
+    bundle = build_model(cfg)
+    grad_init, grad_step, _ = make_chunked_train_fns(bundle, OptConfig())
+    batch = make_batch(cfg, ShapeConfig("e", "train", seq, 1), 0)
+    dt = getattr(torch, dtype)
+    t = time.perf_counter()
+    p = tree_map(lambda x: x.to(dt) if x.is_floating_point() else x,
+                 bundle.init(SEED, device="cpu"))
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    g, loss = grad_step(p, grad_init(p), batch)
+    step_s = time.perf_counter() - t
+    del p
+    g = tree_map(lambda x: x.float(), g)
+    if out_path is not None:
+        torch.save(g, out_path)
+    loss32 = torch.tensor(float(loss), dtype=torch.float32)
+    return {"loss": float(loss32), "loss_bits": float(loss32).hex(),
+            "loss_unrounded": float(loss), "grads_sha256": _grads_digest(g),
+            "dtype": dtype, "threads": torch.get_num_threads(),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "init_s": init_s, "grad_step_s": step_s}
+
+
+def start_reference(arch, layers, seq, out_path, dtype="float32",
+                    env=None):
+    """``train_e_reference`` started in a child process under ``env``
+    (default ``PINNED_CPU_ENV``, on top of this process's environment);
+    ``finish_reference`` waits for it."""
+    import os
+
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1]]; "
+            "import chip_smoke as c; print(json.dumps("
+            "c.train_e_reference(*json.loads(sys.argv[2]))))")
+    args = json.dumps([arch, layers, seq, out_path, dtype])
+    return subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), args], cwd=str(ROOT),
+        env=dict(os.environ, **(PINNED_CPU_ENV if env is None else env)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_reference(proc, timeout=900):
+    """The result of a ``start_reference`` child (killed past
+    ``timeout`` seconds)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode:
+        raise RuntimeError(f"train (e): the CPU reference failed "
+                           f"({proc.returncode}): {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def cpu_host():
+    """This host's CPU: vendor, family, model, model name, stepping, its
+    AVX2 / AVX-512 flags and logical CPUs (the first processor's
+    entries in ``/proc/cpuinfo``)."""
+    import os
+
+    keys = {"vendor_id": "vendor", "cpu family": "family",
+            "model": "model", "model name": "model_name",
+            "stepping": "stepping"}
+    info = {"cpus": os.cpu_count()}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            key = key.strip()
+            if key in keys and keys[key] not in info:
+                info[keys[key]] = val.strip()
+            if key == "flags":
+                flags = val.split()
+                info["avx2"] = "avx2" in flags
+                info["avx512f"] = "avx512f" in flags
+                break
+    return info
+
+
+def _train_card_vs_cpu(tc, base, device, names, root):
+    """One ``grad_step`` of the port's own function on ``device`` in f32
+    (no TF32), against the CPU's in a child process under pinned kernels
+    (``PINNED_CPU_ENV``), from the same f32 weights drawn on the CPU from
+    the seed: the link from the card's path to the CPU path the tests hold
+    against the JAX package.  The child runs beside the card's step.  The
+    reference's loss bits and gradient digest are the same on every host
+    and are returned."""
+    import os
+
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -4170,32 +4423,42 @@ def _train_card_vs_cpu(tc, base, device, names):
             torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("train (e): TF32 is enabled")
     cfg = _train_cut(base, tc["e_layers"], names, "-f32", dtype="float32")
-    bundle = build_model(cfg)
-    grad_init, grad_step, _ = make_chunked_train_fns(bundle, OptConfig())
-    batch = make_batch(cfg, ShapeConfig("e", "train", tc["e_seq"], 1), 0)
+    path = os.path.join(root, "e_reference.pt")
     t = time.perf_counter()
-    p_cpu = bundle.init(SEED, device="cpu")
-    init_s = time.perf_counter() - t
-    t = time.perf_counter()
-    g_cpu, l_cpu = grad_step(p_cpu, grad_init(p_cpu), batch)
-    cpu_s = time.perf_counter() - t
-    p_dev = tree_map(lambda x: x.to(device), p_cpu)
-    del p_cpu
-    t = time.perf_counter()
-    g_dev, l_dev = grad_step(p_dev, grad_init(p_dev), batch)
-    l_dev = float(l_dev)
-    dev_s = time.perf_counter() - t
-    del p_dev
-    loss_rel = abs(l_dev - float(l_cpu)) / abs(float(l_cpu))
+    child = start_reference(base.name, tc["e_layers"], tc["e_seq"], path)
+    try:
+        bundle = build_model(cfg)
+        grad_init, grad_step, _ = make_chunked_train_fns(bundle,
+                                                         OptConfig())
+        batch = make_batch(cfg, ShapeConfig("e", "train", tc["e_seq"], 1),
+                           0)
+        p_dev = tree_map(lambda x: x.to(device),
+                         bundle.init(SEED, device="cpu"))
+        t_dev = time.perf_counter()
+        g_dev, l_dev = grad_step(p_dev, grad_init(p_dev), batch)
+        l_dev = float(l_dev)
+        dev_s = time.perf_counter() - t_dev
+        del p_dev
+    finally:
+        ref = finish_reference(child)
+    ref_s = time.perf_counter() - t
+    g_ref = torch.load(path, mmap=True, weights_only=True)
+    loss_rel = abs(l_dev - ref["loss"]) / abs(ref["loss"])
     worst = 0.0
-    for a, b in zip(tree_leaves(g_dev), tree_leaves(g_cpu)):
+    for a, b in zip(tree_leaves(g_dev), tree_leaves(g_ref)):
         err = (a.cpu() - b).abs().max().item()
         worst = max(worst, err / max(b.abs().max().item(), 1e-30))
-    del g_dev, g_cpu
+    del g_dev, g_ref
+    os.remove(path)
     res = {"arch": cfg.name, "seq_len": tc["e_seq"], "batch": 1,
-           "loss_card": l_dev, "loss_cpu": float(l_cpu),
+           "loss_card": l_dev, "loss_cpu": ref["loss"],
+           "loss_cpu_bits": ref["loss_bits"],
+           "grads_cpu_sha256": ref["grads_sha256"],
+           "cpu_reference": {k: ref[k] for k in (
+               "dtype", "threads", "cpu_capability", "init_s",
+               "grad_step_s")}, "card_and_reference_s": ref_s,
+           "pinned_env": PINNED_CPU_ENV, "cpu_host": cpu_host(),
            "loss_rel_err": loss_rel, "grad_rel_err_max": worst,
-           "init_cpu_s": init_s, "grad_step_cpu_s": cpu_s,
            "grad_step_card_s": dev_s}
     if loss_rel > TRAIN_LOSS_REL_TOL or worst > TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"train (e): card against CPU {res}")
@@ -4296,6 +4559,7 @@ def _arch_run(state, key, arch, device, ec, logit_at, serve_prompt=None,
                              "no kernel")
     peak()
     a_tok, ca = _engine_served(arch, device, 1, 0, f"{key}-a", ec)
+    state.setdefault("arch_engine_tokens", {})[arch] = a_tok
     peak()
     b_tok, cb = _engine_served(arch, device, 8, 1, f"{key}-b", ec)
     peak()
@@ -4550,6 +4814,14 @@ def _routed_phase(state, phase, mc, arch, device, t_phase):
         rec.update(mla=[m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
                         m.qk_rope_head_dim, m.v_head_dim],
                    layers_of=get_arch(PATHS[key][0]).num_layers)
+    if cfg.mla.enabled:
+        n0 = _counts()
+        rec["features"] = _mla_features(
+            arch, device, ec, state["arch_engine_tokens"][arch])
+        launches.update({k: n - n0[k] for k, n in _counts().items()})
+        if device == "cuda":
+            rec["peak_gb"] = max(rec["peak_gb"],
+                                 rec["features"].pop("peak_gb"))
     check = rec["logit_check"]
     if check is not None:
         rec["decode_routing"] = _routing_diff(cfg, routing, "kernel",
@@ -4591,6 +4863,145 @@ def _routed_phase(state, phase, mc, arch, device, t_phase):
 MLA = dict(key="deepseek_v3", arch=None, layers=4, serve_prompt=None,
            engine=dict(ENGINE, n_requests=8), logit_at=6, max_phase_s=120,
            max_peak_gb=45)
+
+
+@contextlib.contextmanager
+def _few_experts(arch):
+    """``arch`` with ``top_k`` routed experts (its width, depth and
+    vocabulary kept), registered in the port's arch registry while the
+    block runs: a draft model small beside its target."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, registry
+
+    cfg = get_arch(arch)
+    name = f"{arch}-{cfg.moe.top_k}experts"
+    registry.ARCHS[name] = dataclasses.replace(cfg, name=name, moe=(
+        dataclasses.replace(cfg.moe, num_experts=cfg.moe.top_k)))
+    try:
+        yield name
+    finally:
+        registry.ARCHS.pop(name, None)
+
+
+def _mla_features(arch, device, ec, want):
+    """The engine's features over latent pages at ``ec``, each run on its
+    own monitor and freed before the next: (e) the prefix cache, the
+    workload's shortest prompt served cold and then again as a full hit,
+    the hit with the cold run's tokens (a prefix engine admits a prompt by
+    one-lane paged decode steps, ``prefill_chunk``, whose bf16 cache is not
+    the blockwise prefill's: the log gives the first token where the cold
+    run leaves run (a)'s); (f)
+    speculative decode, k 2, of the first two requests, the draft the
+    model itself with its routed experts cut to ``top_k`` (a self-draft
+    would hold two 30.22 GB copies, over the peak gate; a shallower cut
+    has no MoE layer, which the plan does not build); (g) a prefill
+    replica admits the first two requests and hands each lane off
+    (``export_lane``: ``xfer_extract`` of its ``ckv``/``k_pe`` pages and a
+    d2h read), is freed, and a decode replica installs the lanes
+    (``import_lane``: h2d, ``xfer_install``, ``lane_set``) and decodes
+    them to the end; (f) and (g) with run (a)'s tokens ``want``.  Returns
+    each run's stats and seconds, and the peak GB on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.serve.engine import ContinuousBatchingEngine, SpecConfig
+
+    cfg = get_arch(arch)
+    reqs = engine_requests(cfg.vocab_size, ec["n_requests"])
+    out, peaks = {}, []
+
+    def engine(tag, **kw):
+        mon = Monitor(f"mla-{tag}", SliceAllocator(
+            "node0", 1, mem_cap_bytes=64 << 30, device=device),
+            telemetry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(arch, FunkyCL(mon), seed=SEED,
+                                       engine_id=f"mla-{tag}",
+                                       **dict(_engine_kw(ec), **kw))
+        eng.setup()
+        return mon, eng
+
+    def done(tag, mon, eng, tokens, t0, ref=None, **stats):
+        what = "the cold run" if ref else "run (a)"
+        ref = ref or want
+        bad = {r: t for r, t in tokens.items()
+               if t != ref[r.split("-")[0]]}
+        if bad:
+            raise AssertionError(f"mla ({tag}): tokens differ from {what} "
+                                 f"for {sorted(bad)}")
+        mon.vfpga_exit()
+        if device == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            _free_cuda()
+        out[tag] = {"requests": sorted(tokens), "s":
+                    time.perf_counter() - t0, **stats}
+
+    # (e) a prefix hit: cold, then the same prompt again
+    t0 = time.perf_counter()
+    mon, eng = engine("e", prefix_cache=True)
+    r = min(reqs, key=lambda q: len(q.prompt))
+    for rid in (r.rid, f"{r.rid}-hit"):
+        eng.submit(type(r)(rid=rid, prompt=r.prompt,
+                           max_new_tokens=r.max_new_tokens))
+        eng.run_until_drained()
+    st = eng.prefix_stats()
+    if st["hits"] < 1:
+        raise AssertionError(f"mla (e): no prefix hit: {st}")
+    tokens = {k: list(c.tokens) for k, c in eng.completed.items()}
+    cold = tokens[r.rid]
+    done("e_prefix_hit", mon, eng, tokens, t0, ref={r.rid: cold},
+         prefix_stats={k: st[k] for k in ("hits", "cached_tokens",
+                                          "prompt_tokens", "hit_rate")},
+         first_divergence_from_run_a=next(
+             (i for i, (x, y) in enumerate(zip(cold, want[r.rid]))
+              if x != y), None))
+    del eng
+    # (f) speculative decode, the draft the model with top_k experts
+    with _few_experts(arch) as draft:
+        t0 = time.perf_counter()
+        mon, eng = engine("f", spec=SpecConfig(k=2, draft_arch=draft))
+        for q in reqs[:2]:
+            eng.submit(q)
+        eng.run_until_drained()
+        st = eng.spec_stats()
+        done("f_spec_k2", mon, eng, {k: list(c.tokens) for k, c in
+                                     eng.completed.items()}, t0,
+             draft=draft, spec_stats=st)
+        del eng
+    # (g) a prefill replica's lanes handed to a decode replica
+    t0 = time.perf_counter()
+    mon, eng = engine("g_prefill", role="prefill")
+    for q in reqs[:2]:
+        eng.submit(q)
+    handoffs = []
+    while len(handoffs) < 2 and not eng.idle:
+        eng.step()
+        handoffs += [eng.export_lane(st) for st in eng.exportable_lanes()]
+    if len(handoffs) < 2:
+        raise AssertionError(f"mla (g): {len(handoffs)} lanes handed off")
+    export_s = time.perf_counter() - t0
+    at_handoff = [len(h.tokens) for h in handoffs]
+    mon.vfpga_exit()
+    del eng
+    if device == "cuda":
+        _free_cuda()
+    mon, eng = engine("g_decode", role="decode")
+    t1 = time.perf_counter()
+    if not all(eng.import_lane(h) for h in handoffs):
+        raise AssertionError("mla (g): the decode replica refused a lane")
+    install_s = time.perf_counter() - t1
+    eng.run_until_drained()
+    done("g_handoff", mon, eng, {k: list(c.tokens) for k, c in
+                                 eng.completed.items()}, t0,
+         handoffs=len(handoffs), pages=sum(h.n_pages for h in handoffs),
+         tokens_at_handoff=at_handoff,
+         export_s=export_s, install_s=install_s)
+    del eng, handoffs
+    if peaks:
+        out["peak_gb"] = max(peaks)
+    return out
 
 
 def phase_mla(state, device="cuda", cut=None):
@@ -5639,6 +6050,8 @@ def kernel_line(state):
     # lanes); launches are the phase's, each counted (phase_features)
     feat = state["features"]
     for key, case, name, launches in (
+            ("k1p", "engine_d", "decode_attention_paged (engine_d)",
+             state["engine"]["d"]["launches"]["K1p"]),
             ("k1p", "disagg_decode",
              "decode_attention_paged (disagg_decode)",
              state["disagg"]["decode_replica_k1p"]),

@@ -248,6 +248,25 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def reduced(t):
+    """``t`` with its partial sums reduced: a DTensor's ``Partial``
+    placements become ``Replicate`` (an all-reduce), its shards stay;
+    any other tensor as it is.  A projection of rows replicated over the
+    data axes (a batch of one row) against a weight sharded over them on
+    its contracted dimension (fsdp) comes out partial over them.  A
+    non-linear op then keeps that partial input for its backward, whose
+    sharding propagation lays the gradient out as a shard of the batch
+    dimension even where it has size 1, which the view rules refuse."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in t.placements)
+    return t if pl == tuple(t.placements) else t.redistribute(
+        t.device_mesh, pl)
+
+
 def mesh_ranks(mesh, axes) -> int:
     """Ranks along ``axes`` (a name or a tuple of names)."""
     from repro_torch.sharding.rules import axis_sizes

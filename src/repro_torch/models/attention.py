@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import is_dtensor
-from repro_torch.models.layers import (cdtype, normal, rmsnorm_1d,
+from repro_torch.models.layers import (by_rows, cdtype, normal, rmsnorm_1d,
                                        rope_fwd)
 
 NEG_INF = -1e30
@@ -506,11 +506,16 @@ def _gqa_decode_sharded(cfg: ModelConfig, p: dict, x, pos, cache: dict, *,
 def gqa_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      pos: torch.Tensor, pool: dict, block_table: torch.Tensor,
                      *, write_ok: torch.Tensor | None = None,
-                     window: int | None = None, impl: str = "kernel"):
+                     window: int | None = None, impl: str = "kernel",
+                     rows: int | None = None, live: int | None = None):
     """One-token decode of every lane of the engine's batch over the paged
     pool.  x: (B, 1, D); pos: (B,) int32, each lane's position; pool: one
     layer's views ``k``/``v`` (NP + 1, ps, Hkv, hd) and ``kv_pos``
     (NP + 1, ps), page NP the sink; block_table: (B, max_blocks) int32.
+    The projections run ``rows`` rows at a time (``layers.by_rows``).
+    With ``live``, only the first ``live`` rows are lanes, the rest idle
+    padding: the writes and attention run over the lanes alone and the
+    idle rows' attention output is zero.
 
     Lane b writes its new k, v and position in place at
     ``pool[bt[b, lp], pos[b] % ps]``, ``lp = (pos[b] % cap) // ps`` with
@@ -525,7 +530,13 @@ def gqa_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k_pool, v_pool, kv_pos = pool["k"], pool["v"], pool["kv_pos"]
     sink, ps = k_pool.shape[0] - 1, k_pool.shape[1]
     pos = pos.to(torch.int32)
-    q, k_new, v_new = _project_qkv(cfg, p, x, pos.reshape(B, 1))
+    q, k_new, v_new = by_rows(rows, lambda xr, pr: _project_qkv(
+        cfg, p, xr, pr), x, pos.reshape(B, 1))
+    n = B if live is None else live
+    if n < B:
+        q, k_new, v_new = q[:n], k_new[:n], v_new[:n]
+        pos, block_table = pos[:n], block_table[:n]
+        write_ok = None if write_ok is None else write_ok[:n]
     lp = ((pos % (block_table.shape[1] * ps)) // ps).long()
     phys = block_table.gather(1, lp[:, None])[:, 0]
     ok = (block_table[:, 0] >= 0) & (phys >= 0)
@@ -546,7 +557,9 @@ def gqa_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                                 block_table, pos, **kw)
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
-    return _out_proj(out, p["wo"])
+    if n < B:
+        out = torch.cat([out, out.new_zeros((B - n,) + out.shape[1:])])
+    return by_rows(rows, lambda o: _out_proj(o, p["wo"]), out)
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -135,6 +135,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def by_rows(rows: Optional[int], fn, *xs):
+    """``fn(*xs)`` computed ``rows`` leading rows of each of ``xs`` at a
+    time, its outputs (a tensor or a tuple of them) concatenated: every
+    product in ``fn`` then runs at ``rows`` rows however many ``xs`` hold
+    (a multiple of ``rows``).  A ``None`` among ``xs`` passes as it is;
+    ``rows`` None, or ``xs`` of at most ``rows`` rows, is one call."""
+    n = xs[0].shape[0]
+    if rows is None or n <= rows:
+        return fn(*xs)
+    outs = [fn(*(None if x is None else x[i:i + rows] for x in xs))
+            for i in range(0, n, rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def init_mlp(cfg: ModelConfig, d_in: int, d_ff: int, device,
              gen: Optional[torch.Generator], count: int = 0) -> dict:
     """silu_glu | geglu (gated, with ``w_gate``) | gelu (plain)."""

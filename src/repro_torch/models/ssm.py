@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.launch.mesh import reduced
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        cdtype, normal)
 
@@ -91,11 +92,10 @@ def _ssm_proj_conv(cfg, p, x, conv_states=None):
     """Projections + causal convs; returns (z, xs, Bm, Cm, dt, conv_states).
     With ``conv_states`` (decode, x: (B, D)) the windows are updated in
     place and returned; without (prefill, x: (B, S, D)) new ones are."""
-    z = x @ p["w_z"]
-    xs = x @ p["w_x"]
-    Bm = x @ p["w_B"]
-    Cm = x @ p["w_C"]
-    dt_raw = x @ p["w_dt"]
+    # on a mesh each product is reduced before its non-linear op
+    # (``launch.mesh.reduced``)
+    z, xs, Bm, Cm, dt_raw = (reduced(x @ p[k]) for k in (
+        "w_z", "w_x", "w_B", "w_C", "w_dt"))
     if conv_states is None:
         xs, cx = causal_conv1d(xs, p["conv_x"])
         Bm, cb = causal_conv1d(Bm, p["conv_B"])

@@ -41,10 +41,10 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssm
-from repro_torch.models.layers import (cross_entropy, embed_fwd, init_embed,
-                                       init_mlp, init_norm, lm_head_fwd,
-                                       mlp_fwd, norm_fwd, shard_batch_dim,
-                                       shard_logits)
+from repro_torch.models.layers import (by_rows, cross_entropy, embed_fwd,
+                                       init_embed, init_mlp, init_norm,
+                                       lm_head_fwd, mlp_fwd, norm_fwd,
+                                       shard_batch_dim, shard_logits)
 from repro_torch.models.moe import init_moe, moe_fwd
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -456,14 +456,20 @@ def _position(pos, token) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int32, device=token.device)
 
 
-# The paged decode runs its batch at a multiple of this many rows, the
-# rows past the lanes idle (token 0, position 0, a block-table row of -1).
-# cuBLAS picks a GEMM algorithm by the row count, and on the H100 a row's
-# bits at 14 or 16 rows differ from those at 8 (tools/batch_invariance.py):
-# at a fixed row count a lane's logits, and so its tokens, do not depend on
-# how many lanes its replica decodes.  Prefill/decode disaggregation moves
-# lanes between replicas of 2 and 14.
-DECODE_ROWS = 16
+# The paged decode runs every row-wise product at this many rows, however
+# many lanes its replica decodes: the projections, the MLP, MLA's
+# projections and latent attention, MoE's router, experts and shared
+# experts, and the head.  Its batch is padded with idle rows (token 0,
+# position 0, a block-table row of -1) to a multiple of it, and those
+# products run it rows at a time (``layers.by_rows``).  cuBLAS picks a
+# GEMM algorithm by the row count, and on the H100 a row's bf16 bits differ
+# between row counts (tools/batch_invariance.py): at one row count a lane's
+# logits, and so its tokens, do not depend on how many lanes its replica
+# decodes, which prefill/decode disaggregation and preemption rely on.  The
+# embedding and the norms keep a row's bits at any count, so they run over
+# every row at once; K1 paged keeps them too, and runs over the lanes
+# alone, the idle rows' attention zero.
+DECODE_ROWS = 64
 
 
 def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
@@ -481,10 +487,14 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
     returns (logits (B, V), pool).  Attention and MLA plans only: other
     mixers have no pages.  The batch runs
     padded with idle rows to a multiple of ``rows`` (``DECODE_ROWS``; the
-    prefix cache's one-lane ``prefill_chunk`` passes 1), which attention
-    treats as inactive lanes: K1 gives them zeros and their writes go to the
-    sink page.  MoE blocks route the B lanes as the reference engine's
-    per-lane decode does, whatever the padding (``moe_fwd``'s ``live``)."""
+    prefix cache's one-lane ``prefill_chunk`` passes 1).  K1 paged and the
+    cache writes run over the B lanes alone, the idle rows' attention
+    zero; MLA treats the idle rows as inactive lanes, their writes to the
+    sink page.  Every row-wise product runs ``rows`` rows at a time: MLA's
+    whole decode (it has no kernel) and each MoE block go block by block,
+    the attention's projections and the MLP and head by rows.  MoE blocks
+    route each block's lanes as the reference engine's per-lane decode does,
+    whatever the padding (``moe_fwd``'s ``live``)."""
     B = token.shape[0]
     pad = -B % rows
     if pad:
@@ -505,23 +515,28 @@ def lm_decode_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 if spec.mixer == "attn":
                     h = h + attn.gqa_decode_paged(
                         cfg, p["attn"], hn, pos, layer_pool, block_table,
-                        write_ok=write_ok, window=spec.window, impl=impl)
+                        write_ok=write_ok, window=spec.window, impl=impl,
+                        rows=rows, live=B)
                 elif spec.mixer == "mla":
-                    h = h + attn.mla_decode_paged(
-                        cfg, p["attn"], hn, pos, layer_pool, block_table,
-                        write_ok=write_ok, absorb=mla_absorb)
+                    h = h + by_rows(
+                        rows, lambda x, ps, bt, ok: attn.mla_decode_paged(
+                            cfg, p["attn"], x, ps, layer_pool, bt,
+                            write_ok=ok, absorb=mla_absorb),
+                        hn, pos, block_table, write_ok)
                 else:
                     raise ValueError(f"mixer {spec.mixer!r} has no paged "
                                      "decode (its state has no pages)")
                 if spec.ffn == "mlp":
-                    h = h + mlp_fwd(cfg, p["mlp"],
-                                    norm_fwd(cfg, p["norm2"], h))
+                    h = h + by_rows(rows, lambda x: mlp_fwd(
+                        cfg, p["mlp"], norm_fwd(cfg, p["norm2"], x)), h)
                 elif spec.ffn == "moe":
-                    h = h + moe_fwd(cfg, p["moe"],
-                                    norm_fwd(cfg, p["norm2"], h), live=B,
-                                    aux=False)[0]
-    h = norm_fwd(cfg, params["final_norm"], h)
-    logits = lm_head_fwd(cfg, params["embed"], h)
+                    h = h + torch.cat([moe_fwd(
+                        cfg, p["moe"], norm_fwd(cfg, p["norm2"],
+                                                h[i:i + rows]),
+                        live=min(rows, B - i), aux=False)[0]
+                        for i in range(0, h.shape[0], rows)])
+    logits = by_rows(rows, lambda x: lm_head_fwd(
+        cfg, params["embed"], norm_fwd(cfg, params["final_norm"], x)), h)
     return logits[:B, 0, :], pool
 
 

@@ -232,7 +232,6 @@ class ContinuousBatchingEngine:
                  tracer: Any = None):
         from repro_torch.configs import get_arch
         from repro_torch.models import build_model
-        from repro_torch.models.transformer import DECODE_ROWS
 
         # disaggregated serving: a `prefill` replica admits prompts and
         # hands freshly prefilled lanes to a `decode` replica through a
@@ -319,16 +318,6 @@ class ContinuousBatchingEngine:
         self.prefix = None
         self._prefix_max_nodes = prefix_cache_max_nodes
         if paged:
-            if slots > DECODE_ROWS:
-                # decode pads to DECODE_ROWS rows, and a replica of more
-                # lanes to twice that, where a lane's bf16 bits differ
-                raise ValueError(
-                    f"a paged engine decodes at most {DECODE_ROWS} lanes, "
-                    f"got slots={slots}: past {DECODE_ROWS} the decode "
-                    f"runs {2 * DECODE_ROWS} rows, and on the H100 cuBLAS "
-                    f"gives a lane other bf16 bits there than at "
-                    f"{DECODE_ROWS} (tools/batch_invariance.py), so its "
-                    "tokens would depend on its replica's lane count")
             self.buckets = tuple(sorted(set(prompt_buckets or (prompt_len,))))
             self.prompt_len = max(self.buckets)
             self.page_size = page_size

@@ -600,29 +600,31 @@ def test_handoff_holds_cpu_tensors_and_no_cycle():
         monP.vfpga_exit()
 
 
-def test_paged_decode_lane_keeps_its_bits_at_any_batch():
-    """``lm_decode_paged`` runs its rows padded to ``DECODE_ROWS``: lane 0
-    decodes to the same logits and pages alone, among 2 lanes or among 14,
-    and the padding rows write to the sink page only."""
+@pytest.mark.parametrize("lanes", [2, 14, 17, 65])
+def test_paged_decode_lane_keeps_its_bits_at_any_batch(lanes):
+    """``lm_decode_paged`` runs its row-wise products at ``DECODE_ROWS``
+    rows (past that many lanes, in blocks of it): lane 0 decodes to the
+    same logits and pages alone and among ``lanes`` lanes, and alone it
+    writes its own pages only (attention and the cache writes run over
+    the lanes, never the padding rows)."""
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import DECODE_ROWS
     from repro_torch.serve.kvcache import (init_caches_from_specs,
                                            pool_specs_from_lane_cache)
     from repro_torch.tree import tree_leaves, tree_map
 
-    assert DECODE_ROWS == 16
     cfg = tcfg.get_arch(ARCH)
     bundle = build_model(cfg, cache_margin=0)
     params = bundle.init(0, device="cpu")
-    NP, mb = 64, 4
+    mb = 4
+    NP = 65 * mb
     pool0 = init_caches_from_specs(pool_specs_from_lane_cache(
         bundle.cache_specs(1, PROMPT_LEN), NP, PAGE, PROMPT_LEN), "cpu")
     rng = np.random.default_rng(5)
-    toks = torch.as_tensor(rng.integers(0, 100, (14, 3)), dtype=torch.int32)
-    bt = torch.as_tensor(rng.permutation(NP)[:14 * mb].reshape(14, mb),
+    toks = torch.as_tensor(rng.integers(0, 100, (65, 3)), dtype=torch.int32)
+    bt = torch.as_tensor(rng.permutation(NP).reshape(65, mb),
                          dtype=torch.int32)
     runs = {}
-    for B in (1, 2, 14):
+    for B in (1, lanes):
         pool = tree_map(torch.clone, pool0)
         out = []
         for i in range(3):
@@ -631,16 +633,14 @@ def test_paged_decode_lane_keeps_its_bits_at_any_batch():
                 pool, bt[:B])
             out.append(logits[0])
         runs[B] = (torch.stack(out), pool)
-    for B in (2, 14):
-        assert torch.equal(runs[B][0], runs[1][0])
+    assert torch.equal(runs[lanes][0], runs[1][0])
     # lane 0's pages hold the same bytes; alone, lane 0 wrote its own pages
-    # and the padding rows the sink (page NP), nothing else
+    # and nothing else, the sink (page NP) included
     pages = bt[0].long()
-    for a, b in zip(tree_leaves(runs[14][1]), tree_leaves(runs[1][1])):
+    for a, b in zip(tree_leaves(runs[lanes][1]), tree_leaves(runs[1][1])):
         assert torch.equal(a[pages], b[pages])
     rest = torch.ones(NP + 1, dtype=torch.bool)
     rest[pages] = False
-    rest[NP] = False
     for a, b in zip(tree_leaves(runs[1][1]), tree_leaves(pool0)):
         assert torch.equal(a[rest], b[rest])
 
@@ -795,15 +795,14 @@ def test_placement_role_scores_match_the_reference():
 def test_pair_on_card_gives_the_mixed_engine_tokens():
     """The pair at yi-9b-smoke (bf16) on the card: the mixed engine's
     tokens, with K2 once a layer per admission and K1 paged once a layer
-    per decode step over both replicas, every one at ``DECODE_ROWS`` rows,
-    and no dense K1."""
+    per decode step over both replicas, each at its replica's lane count
+    (K1 paged runs over the lanes, never the rows that pad the decode's
+    products to ``DECODE_ROWS``), and no dense K1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_paged)
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models.transformer import DECODE_ROWS
-
     want = aggregated_ref(SPEC, seed=3, device="cuda")
     engines = []
 
@@ -827,6 +826,8 @@ def test_pair_on_card_gives_the_mixed_engine_tokens():
     assert flash_attention.launches == L * admits
     assert decode_attention_paged.launches == L * steps
     by_shape = decode_attention_paged.launches_by_shape
-    assert {B for B, _ in by_shape} == {DECODE_ROWS}
+    assert {B for B, _ in by_shape} == {
+        e.slots for e in engines if e.program_execs.get("decode_step", 0)
+        or e.program_execs.get("decode_multi", 0)}
     assert sum(by_shape.values()) == L * steps
     assert decode_attention.launches == 0

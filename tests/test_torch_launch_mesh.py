@@ -5,7 +5,8 @@ and ``roofline`` on a fake process group).
   gloo group for the six family representatives x train / prefill /
   decode (the counterpart of ``tests/test_launch_small.py``'s
   lower-and-compile case): each step's outputs equal the mesh-less
-  cell's to the bit (at one rank every op runs on whole tensors);
+  cell's to the bit (at one rank every op runs on whole tensors), and
+  so does a train step of one-row microbatches under each policy;
 * ``dryrun.run_cell`` of smoke cells over a fake group of 16 ranks (a
   4 x 4 mesh): the record names the mesh and the fake backend, and its
   per-device argument bytes equal the sum of the local shard sizes the
@@ -92,6 +93,28 @@ def test_build_cell_on_a_one_rank_mesh(one_rank_mesh, arch, kind):
         for t, s in zip(tree_leaves(got[1]), tree_leaves(
                 cell.out_placements[1])):
             assert t.placements == s.placements_for(t.shape)
+
+
+@pytest.mark.parametrize("arch", FAMILY_REPS)
+@pytest.mark.parametrize("policy", ["tp", "fsdp_tp", "fsdp"])
+def test_one_row_microbatches_on_a_one_rank_mesh(one_rank_mesh, arch,
+                                                 policy):
+    """A train step whose microbatches hold one row each: the batch
+    dimension is replicated, not sharded over the data axis, in the
+    forward and in the backward, and the step equals the mesh-less one
+    to the bit."""
+    cfg = get_arch(arch)
+    shape = dataclasses.replace(TINY["train"], global_batch=2)
+    plain = build_cell(cfg, shape, num_microbatches=2)
+    cell = build_cell(cfg, shape, one_rank_mesh, policy=policy,
+                      num_microbatches=2)
+    with torch.enable_grad():
+        want = plain.fn(*plain.materialize("cpu", 0))
+        got = cell.fn(*cell.materialize("cpu", 0))
+    w, g = tree_leaves(want), tree_leaves(got)
+    assert len(w) == len(g)
+    for a, b in zip(g, w):
+        assert torch.equal(_full(a), b)
 
 
 def _local_bytes(tree, shardings) -> int:

@@ -5,7 +5,7 @@ engine against the JAX engine, and the slice as a whole.
   weights (``deepseek-moe-16b-f32`` registered in both packages' ``ARCHS``
   for this module only; 2 lanes, pages of 4, 6 requests); the JAX engine
   decodes each lane alone (a vmap), the port routes the lanes together
-  with ``moe_fwd``'s ``live`` (padded to 16 rows);
+  with ``moe_fwd``'s ``live`` (padded to ``DECODE_ROWS`` rows);
 * ``TaskImage(arch="deepseek-moe-16b-smoke")`` served by ``FunkyRuntime``
   gives ``generate``'s tokens, uninterrupted and with one evict/resume
   between steps;

@@ -68,14 +68,21 @@ def test_every_mapped_page_belongs_to_exactly_one_cta(B, Hkv, mb, ps):
 def test_the_paths_routes():
     """The engine's decode takes 5-CTA clusters of 8 pages (two tiles a
     warp), and so do the disaggregated replicas' (2 lanes over 36 pages,
-    14 over 37, each padded to 16 rows); verify's window 3-CTA clusters of
-    4 pages (one tile a warp); prefill_chunk's one lane one CTA."""
+    14 over 37), and the engines of ``DECODE_ROWS`` (64) lanes and of
+    twice that; verify's window 3-CTA clusters of 4 pages (one tile a warp);
+    prefill_chunk's one lane one CTA."""
     assert paged_plan(8, 4, 36, 16, BF16, H100_SMS) == ("cluster", 128, 5)
     assert paged_plan(2, 4, 36, 16, BF16, H100_SMS) == ("cluster", 128, 5)
     assert paged_plan(14, 4, 37, 16, BF16, H100_SMS) == ("cluster", 128, 5)
     assert paged_plan(1, 4, 5, 16, BF16, H100_SMS) == ("single", 80, 1)
     assert paged_plan(8, 4, 11, 16, BF16, H100_SMS) == ("cluster", 64, 3)
     assert paged_plan(16, 4, 37, 16, BF16, H100_SMS) == ("cluster", 128, 5)
+    for rows in (64, 128):
+        for mb in (36, 37):
+            assert paged_plan(rows, 4, mb, 16, BF16, H100_SMS) == (
+                "cluster", 128, 5)
+        assert paged_plan(rows, 4, 11, 16, BF16, H100_SMS) == (
+            "cluster", 64, 3)
     # f32 keeps the slot split over the table
     assert paged_plan(8, 4, 36, 16, torch.float32, H100_SMS)[0] == "slots"
 

@@ -10,6 +10,9 @@ mesh of four gloo ranks (``launch.steps.build_cell(..., mesh)``).
   dropped) under the "local" and "a2a" expert-parallel dispatches: the
   loss within 1e-4 of the reference's local dispatch, as
   ``tests/test_train.py::test_moe_a2a_matches_local_dispatch`` holds it;
+* mamba2-1.3b-smoke's f32 gradients on a batch of one row under
+  "fsdp_tp" within 1e-5 (relative to a leaf's largest value) of the
+  mesh-less gradients;
 * yi-9b-smoke's prefill and decode cells: the last-token logits of a
   prefill and of the decode step after it within 1e-5 (relative to the
   largest logit) of the mesh-less cells', with its 4 kv heads over
@@ -86,6 +89,28 @@ def _serve(cfg, mesh, seed):
     return _full(logits), _full(step)
 
 
+def _one_row(mesh):
+    """mamba2-1.3b-smoke's f32 gradients on a batch of one row (its
+    dimension replicated over "data", the fsdp weights' products partial
+    there) under "fsdp_tp", relative to the mesh-less gradients."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b-smoke"), dtype="float32")
+    shape = ShapeConfig("t", "train", S, 1)
+    grads = []
+    for m in (None, mesh):
+        cell = build_cell(cfg, shape, m, policy="fsdp_tp")
+        params, _, batch = cell.materialize("cpu", 0)
+        grads.append(tree_leaves(value_and_grad(cell.bundle)(params,
+                                                             batch)[0]))
+    return max(float((_full(g) - w).abs().max()
+                     / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(grads[1], grads[0]))
+
+
 def _ranks_body(rank, world, yi_params, moe_params, batch):
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_mesh
@@ -103,6 +128,7 @@ def _ranks_body(rank, world, yi_params, moe_params, batch):
         rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                   for a, b in zip(tree_leaves(got), tree_leaves(want)))
         out[("yi", policy)] = {"loss": loss, "param_rel": rel, "kept": kept}
+    out["one_row"] = _one_row(mesh)
     params = params_from_jax(moe_params)
     for dispatch in DISPATCH:
         cfg = dataclasses.replace(moe, moe_dispatch=dispatch)
@@ -180,3 +206,8 @@ def test_expert_parallel_matches_the_reference_local_dispatch(
 def test_prefill_and_decode_logits_match_the_mesh_less_cells(ranks, case):
     for r in ranks:
         assert max(r[case]) <= LOGIT_REL_TOL, r[case]
+
+
+def test_one_row_gradients_match_the_mesh_less_step(ranks):
+    for r in ranks:
+        assert r["one_row"] <= PARAM_REL_TOL, r["one_row"]

@@ -2,7 +2,7 @@
 """Where an f32 training forward on the card leaves the CPU's, and the
 exact answer.
 
-    python3 tools/train_precision_probe.py [--arch yi-9b-smoke]
+    python3 tools/train_precision_probe.py [--arch yi-9b-smoke] [--e]
 
 Runs the port's f32 ``loss_fn`` of the arch (weights from seed 0, the
 training tests' batch shape: 2 x 32 tokens from ``numpy`` seed 0) on the
@@ -19,6 +19,17 @@ library), and a plain f32 GEMM's error against float64 (TF32 shows as
 ``tests/test_torch_train.py::test_card_f32_loss_and_grads_against_float64``
 puts the reference's loss beside these.  One JSON object per line, the
 card's name and power limit first.
+
+``--e`` also runs ``chip_smoke.py``'s train (e) at its shape (full-width
+yi-9b cut to 2 layers, one row of 256 tokens): the host's CPU (model, its
+AVX2 and AVX-512 flags, ATen's capability), then the CPU reference in a
+child process under each kernel choice: the host's defaults in f32,
+ATen and MKL pinned to AVX2 (``chip_smoke.PINNED_CPU_ENV``, the one (e)
+gates against) and to AVX-512 in f32, and the AVX2 pins in float64 (the
+exact answer at f32's needs), each with its loss bits, gradient digest
+and seconds, and the card's f32 step against each (the gaps (e) gates
+at 1e-5 and 1e-4).  Two hosts whose defaults differ print other default
+digests and the same pinned ones.
 """
 
 from __future__ import annotations
@@ -84,6 +95,52 @@ def _gap(torch, a, b):
     return (a - b).abs().max().item() / den if den else 0.0
 
 
+def train_e(torch):
+    """(e) at its shape under each CPU kernel choice, against the card."""
+    import os
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as c
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, make_batch, make_chunked_train_fns
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tc = c.TRAIN
+    log(cpu=c.cpu_host(),
+        cpu_capability=torch.backends.cpu.get_cpu_capability(),
+        torch_threads=torch.get_num_threads())
+    cfg = c._train_e_cfg(tc["arch"], tc["e_layers"])
+    bundle = build_model(cfg)
+    grad_init, grad_step, _ = make_chunked_train_fns(bundle, OptConfig())
+    batch = make_batch(cfg, ShapeConfig("e", "train", tc["e_seq"], 1), 0)
+    p = tree_map(lambda x: x.cuda(), bundle.init(c.SEED, device="cpu"))
+    g_card, l_card = grad_step(p, grad_init(p), batch)
+    g_card = [t.cpu() for t in tree_leaves(g_card)]
+    del p
+    avx512 = {"ATEN_CPU_CAPABILITY": "avx512", "MKL_CBWR": "AVX512,STRICT",
+              "OMP_NUM_THREADS": "8", "MKL_NUM_THREADS": "8"}
+    runs = [("host_default_f32", {}, "float32"),
+            ("pinned_avx2_f32 (the reference)", c.PINNED_CPU_ENV, "float32"),
+            ("pinned_avx512_f32", avx512, "float32"),
+            ("pinned_avx2_f64", c.PINNED_CPU_ENV, "float64")]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "g.pt")
+        for name, env, dtype in runs:
+            ref = c.finish_reference(c.start_reference(
+                tc["arch"], tc["e_layers"], tc["e_seq"], path, dtype=dtype,
+                env=env))
+            g = torch.load(path, mmap=True, weights_only=True)
+            worst = max(_gap(torch, a, b) for a, b in zip(g_card,
+                                                           tree_leaves(g)))
+            del g
+            log(cpu_reference=name, env=env, **ref,
+                card_loss=float(l_card),
+                loss_rel_gap=abs(float(l_card) - ref["loss_unrounded"])
+                / abs(ref["loss_unrounded"]), worst_grad_rel_gap=worst)
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -95,6 +152,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-9b-smoke")
+    ap.add_argument("--e", action="store_true",
+                    help="also chip_smoke.py's train (e) under each CPU "
+                    "kernel choice")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_precision_probe: needs a CUDA card", file=sys.stderr)
@@ -104,6 +164,8 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     log(card=card, torch=torch.__version__, cuda=torch.version.cuda,
         settings=_settings(torch))
+    if args.e:              # first, under the settings chip_smoke.py keeps
+        train_e(torch)
     cfg = dataclasses.replace(get_arch(args.arch), dtype="float32")
     bundle = build_model(cfg)
     params = bundle.init(0, device="cpu")
