@@ -203,7 +203,25 @@ caught):
    the mesh (batch 8, prompt 512, 32 greedy tokens; K2 and K1 inside
    ``shard_map``): the mesh-less cells' tokens and exact launches; (c)
    one deepseek-moe-16b block's ``moe_fwd`` under "local" and "a2a"
-   equal to the mesh-less dispatch to the bit.
+   equal to the mesh-less dispatch to the bit;
+26. the ported examples and tools (``phase_examples``, budget 150 s and
+   45 GB peak, both gated), each through its own ``main`` at the full
+   width of the reference's archs cut in depth: (a)
+   ``examples_torch/quickstart.py`` on yi-9b at 2 of 48 layers (seq 64,
+   batch 8 in 4 chunks, 100 steps) to DONE, the final loss under the
+   first step's; (b) ``preemptive_cluster.py``, two yi-9b batch jobs at 1
+   of 48 layers and a qwen3-8b prod job at 1 of 36 under PRE_MG: an
+   eviction, every job done, the evicted one at its last step; (c)
+   ``checkpoint_restore.py`` on mamba2-1.3b at 4 of 48 layers: the job
+   recovered on the surviving node with an uninterrupted run's final
+   parameters, bit for bit; (d) ``elastic_serving.py`` on yi-9b at 2 of
+   48 layers, its base rate scaled by one replica's measured rate: every
+   request once, drained back to one replica, K2 and K1 paged exactly
+   over every replica, 16 requests' tokens equal to one engine's alone;
+   (e) ``tools/cluster_smoke_torch.py`` to ``CLUSTER SMOKE OK`` and
+   ``tools/smoke_all_torch.py`` over the ten reduced archs, launches
+   exact by arch; (f) ``tools/trace_dump_torch.py``'s check of phase
+   15's Chrome trace.
 
 Each model's weights are freed before the next model's phases.  The last
 line of a run of every phase is ``{"ok": true, "device": {...}}`` (of a
@@ -274,7 +292,7 @@ PHASES = ("env", "kernels", "serve", "parity", "profile", "evict",
           "serve_recurrentgemma", "parity_recurrentgemma",
           "profile_recurrentgemma", "evict_new", "engine", "features",
           "disagg", "cri", "orch", "train", "dense_archs", "moe", "mla",
-          "families", "launch", "mesh")
+          "families", "launch", "mesh", "examples")
 # K1's paged entry at the engine's decode shape: one position per lane,
 # between 100 and 575 (prompt 512 + 64 tokens)
 ENGINE_PAGED_POS = [100, 575, 233, 512, 417, 130, 351, 498]
@@ -2318,6 +2336,7 @@ def _features_traced(fc, device):
                     doc = json.load(f)
             run["chrome_trace"] = validate_chrome_trace(doc)
             run["chrome_trace_events"] = len(doc["traceEvents"])
+            trace_doc = doc
             run["iteration_split"] = _iteration_split(tracer)
             adm = [s.duration for t in tracer.traces()
                    for s in t.find_spans("engine.admit")]
@@ -2338,6 +2357,8 @@ def _features_traced(fc, device):
         raise AssertionError("features (d): not every request completed")
     out["traced_over_untraced_wall"] = (out["traced"]["wall_s"]
                                         / out["untraced"]["wall_s"])
+    # the examples phase reads it with tools/trace_dump_torch.py
+    out["trace_doc"] = trace_doc
     return out
 
 
@@ -2634,6 +2655,7 @@ def _features(state, fc, device):
         _free_cuda()
         torch.cuda.reset_peak_memory_stats()
     d = _features_traced(fc, device)
+    state["features_trace_doc"] = d.pop("trace_doc")
     log(phase="features", run="d_traced", card=state.get("card"),
         **{k: ({kk: vv for kk, vv in v.items() if kk != "tokens"}
                if isinstance(v, dict) else v) for k, v in d.items()})
@@ -5983,6 +6005,365 @@ def phase_mesh(state, device="cuda", cut=None):
 
 
 # ---------------------------------------------------------------------------
+# 26. the ported examples and tools, driven through their own entry points
+# ---------------------------------------------------------------------------
+
+# The examples of ``examples_torch/`` and the tools ``tools/*_torch.py``
+# at the full width of the reference's archs, cut in depth only; state at
+# 14 bytes a parameter (bf16 weights, f32 grad_acc, two f32 AdamW
+# moments).  (a) quickstart's image on yi-9b at 2 of 48 layers (0.870 B
+# parameters, ~12.2 GB) in a 16 GiB slice, at ``OptConfig``'s default peak
+# learning rate, 3e-4 (the reference's 3e-3 is set for its smoke width
+# of 64: at d_model 4096 it took the loss from 11.60 to 13.66 over the
+# 100 steps on an H100 80GB HBM3 at 700 W); (b) preemptive_cluster's batch
+# jobs on yi-9b at 1 of 48 (0.697 B, ~9.8 GB each) and its prod job on
+# qwen3-8b at 1 of 36 (1.438 B, ~20 GB: its 151936-token vocabulary) in
+# 24 GiB slices; (c) checkpoint_restore on mamba2-1.3b at 4 of 48 (0.206 B,
+# ~2.9 GB; yi-9b's embedding and head alone would move 7.3 GB through the
+# snapshot's disk at ~0.3 GB/s a way); (d) elastic_serving on yi-9b at 2 of
+# 48 (1.74 GB of bf16 weights a replica), its base rate scaled so the
+# burst keeps the reference's ratio to one replica's capacity
+# (``REQUEST_RATE`` x R1 / ``REFERENCE_REPLICA_RATE``, R1 one 2-slot
+# replica's closed-loop rate over ``rate_s``; ``request_rate`` replaces
+# the scaled rate in a rehearsal on a loaded CPU), and ``sample`` of its
+# requests, drawn by ``seed``, served again on one engine alone; (e) the
+# two smoke tools at their own sizes; (f) ``trace_dump_torch --check`` on
+# the features phase's Chrome trace.
+EXAMPLES = dict(
+    quickstart=dict(arch="yi-9b", layers=2, mem_cap=16 << 30, steps=None,
+                    peak_lr=3e-4),
+    preemptive=dict(batch_arch="yi-9b", batch_layers=1, prod_arch="qwen3-8b",
+                    prod_layers=1, mem_cap=24 << 30),
+    checkpoint=dict(arch="mamba2-1.3b", layers=4, mem_cap=8 << 30),
+    elastic=dict(arch="yi-9b", layers=2, mem_cap=8 << 30, rate_s=3.0,
+                 request_rate=None, duration_s=None, sample=16, seed=43),
+    smoke_all=dict(names=None),
+    max_phase_s=150.0, max_peak_gb=45.0)
+
+
+def _script(rel):
+    """A script of the checkout (``examples_torch/*.py``, ``tools/*.py``)
+    loaded as a module of its own."""
+    import importlib.util
+
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(
+        f"_chip_smoke_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_expected(cfg):
+    """Launches of ``smoke_all_torch.run_arch``'s prefill and decode step
+    (its loss and gradient run the plain paths): K2 once an attention
+    layer (the encoder-decoder: encoder, decoder self and cross), K1 once
+    an attention layer per decode step (self and cross), K3 once a Mamba2
+    layer, K4 once an RG-LRU layer; MLA none."""
+    from repro_torch.models.transformer import plan_segments
+
+    want = dict.fromkeys(("K1", "K1p", "K2", "K3", "K4"), 0)
+    if cfg.family == "encdec":
+        want.update(K2=cfg.encoder_layers + 2 * cfg.num_layers,
+                    K1=2 * cfg.num_layers)
+        return want
+    mix = collections.Counter()
+    for s in plan_segments(cfg):
+        for b in s.blocks:
+            mix[b.mixer] += s.count
+    want.update(K1=mix["attn"], K2=mix["attn"], K3=mix["ssm"],
+                K4=mix["rec"])
+    return want
+
+
+def _example_run(runs, name, device, fn, expect=None):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, its seconds and (on the card) its peak; ``expect(out)`` gives
+    the exact launches the run must show on the card (default: none, as
+    training launches no kernel)."""
+    import torch
+
+    if device == "cuda":
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _counts().items() if k != "K1p_b1"}
+    run = {"s": wall, "launches": launches}
+    if device == "cuda":
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        _free_cuda()
+    want = (expect(out) if expect is not None
+            else dict.fromkeys(launches, 0))
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"examples ({name}): launches {launches}, "
+                             f"expected {want}")
+    runs[name] = run
+    return out
+
+
+def _served_trace_doc(device):
+    """The Chrome trace of two requests served on yi-9b-smoke through a
+    router, an engine and a monitor sharing one tracer."""
+    import numpy as np
+
+    from repro_torch.core import FunkyCL, Monitor, SliceAllocator
+    from repro_torch.obs import Tracer
+    from repro_torch.scaling.metrics import MetricsRegistry
+    from repro_torch.scaling.serving import RequestRouter
+    from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          ServeRequest)
+
+    tracer = Tracer(capacity=256)
+    mon = Monitor("trace-doc", SliceAllocator("node0", 1, device=device),
+                  telemetry=MetricsRegistry(), tracer=tracer)
+    eng = ContinuousBatchingEngine("yi-9b-smoke", FunkyCL(mon), slots=2,
+                                   prompt_len=8, page_size=4,
+                                   max_new_tokens=3, engine_id="trace-doc")
+    eng.setup()
+    router = RequestRouter("trace-doc", registry=eng.registry,
+                           kv_aware=False, tracer=tracer)
+    try:
+        for i in range(2):
+            router.submit(ServeRequest(rid=f"r{i}", prompt=np.arange(8) + i,
+                                       max_new_tokens=3))
+        while router.outstanding() or not eng.idle:
+            eng.pump(router)
+    finally:
+        mon.vfpga_exit()
+    return tracer.chrome_trace()
+
+
+def phase_examples(state, device="cuda", cut=None):
+    """The ported examples and tools through their own ``main``s, at the
+    full width of the reference's archs cut in depth (``EXAMPLES``): (a)
+    quickstart to DONE at its last step, the final loss finite and under
+    the first step's (a one-step run of the same image; the image at the
+    phase's ``peak_lr``); (b)
+    preemptive_cluster: an eviction, every job done, the evicted batch
+    job at its last step; (c) checkpoint_restore: the recovered job DONE
+    at its last step with the final parameters of an uninterrupted run,
+    bit for bit; (d) elastic_serving at the scaled rate: every request
+    once, drained back to one replica, K2 = L x admissions and K1 paged =
+    L x decode steps over every replica, and ``sample`` requests' tokens
+    equal to one engine's alone; (e) cluster_smoke_torch to ``CLUSTER
+    SMOKE OK`` (K2 and K1 of its serve image exactly) and smoke_all_torch
+    with every arch OK and exact launches by arch; (f)
+    ``trace_dump_torch.check`` on the features phase's Chrome trace (of a
+    short traced run where that phase did not run): exit 0, an
+    ``execute.device`` span of non-zero duration.  No other launch
+    anywhere (training runs no kernel).  The phase holds under
+    ``max_phase_s`` and ``max_peak_gb``.  ``cut`` merges into
+    ``EXAMPLES`` by example (a rehearsal on the CPU at smoke size, where
+    ``layers`` None keeps the arch; launches, peaks and the budget are
+    checked on the card only)."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduced, registry
+
+    cut = dict(cut or {})
+    ec = {k: (dict(v, **cut.get(k, {})) if isinstance(v, dict) else
+              cut.get(k, v)) for k, v in EXAMPLES.items()}
+    t_phase = time.perf_counter()
+    runs, out = {}, {}
+    root = tempfile.mkdtemp(prefix="funky-examples-")
+    names = []
+
+    def cut_arch(arch, layers):
+        base = get_arch(arch)
+        if layers is None or base.num_layers <= layers:
+            return arch
+        return _train_cut(base, layers, names).name
+
+    try:
+        # (a) quickstart
+        qs = _script("examples_torch/quickstart.py")
+        qc = ec["quickstart"]
+        arch = cut_arch(qc["arch"], qc["layers"])
+        image = dataclasses.replace(qs.IMAGE, opt=dataclasses.replace(
+            qs.IMAGE.opt, peak_lr=qc["peak_lr"]))
+        kw = dict(image=image, arch=arch, mem_cap_bytes=qc["mem_cap"],
+                  device=device, ckpt_root=root)
+        first = _example_run(runs, "quickstart_first_step", device,
+                             lambda: qs.main(total_steps=1, **kw))
+        a = _example_run(runs, "quickstart", device,
+                         lambda: qs.main(total_steps=qc["steps"], **kw))
+        a["first_step_loss"] = first["final_loss"]
+        out["a_quickstart"] = a
+        log(phase="examples", run="a_quickstart", card=state.get("card"),
+            **a, **runs["quickstart"])
+        if not (a["status"] == "done" and a["step"] == a["total_steps"]
+                and math.isfinite(a["final_loss"])
+                and a["final_loss"] < first["final_loss"]):
+            raise AssertionError(f"examples (a): {a}")
+
+        # (b) preemptive_cluster
+        pc = ec["preemptive"]
+        pm = _script("examples_torch/preemptive_cluster.py")
+        b = _example_run(runs, "preemptive_cluster", device, lambda: pm.main(
+            batch_arch=cut_arch(pc["batch_arch"], pc["batch_layers"]),
+            prod_arch=cut_arch(pc["prod_arch"], pc["prod_layers"]),
+            mem_cap_bytes=pc["mem_cap"], device=device, ckpt_root=root))
+        out["b_preemptive_cluster"] = b
+        log(phase="examples", run="b_preemptive_cluster",
+            card=state.get("card"), **b, **runs["preemptive_cluster"])
+        evicted = b["jobs"][b["evicted"][0]] if b["evicted"] else None
+        if not (b["evicted"] and all(j["status"] == "done"
+                                     for j in b["jobs"].values())
+                and evicted["step"] == pm.IMAGES["batch-job"].total_steps):
+            raise AssertionError(f"examples (b): {b}")
+
+        # (c) checkpoint_restore against one uninterrupted run
+        cc = ec["checkpoint"]
+        cr = _script("examples_torch/checkpoint_restore.py")
+        ckw = dict(arch=cut_arch(cc["arch"], cc["layers"]),
+                   mem_cap_bytes=cc["mem_cap"], device=device,
+                   ckpt_root=root)
+        want = _example_run(runs, "checkpoint_uninterrupted", device,
+                            lambda: cr.uninterrupted(**ckw))
+        c = _example_run(runs, "checkpoint_restore", device,
+                         lambda: cr.main(**ckw))
+        c["params_equal"] = _tree_equal(c.pop("final_params"), want)
+        del want
+        out["c_checkpoint_restore"] = c
+        log(phase="examples", run="c_checkpoint_restore",
+            card=state.get("card"), **c, **runs["checkpoint_restore"])
+        if not (c["status"] == "done"
+                and c["step"] == cr.IMAGE.total_steps
+                and c["params_equal"]):
+            raise AssertionError(f"examples (c): {c}")
+
+        # (d) elastic_serving at the reference's ratio to one replica
+        el = ec["elastic"]
+        es = _script("examples_torch/elastic_serving.py")
+        arch = cut_arch(el["arch"], el["layers"])
+        ekw = dict(arch=arch, mem_cap_bytes=el["mem_cap"], device=device)
+        r1 = es.replica_rate(seconds=el["rate_s"], **ekw)
+        if device == "cuda":
+            _free_cuda()
+        rate = el["request_rate"] or (es.REQUEST_RATE * r1["requests_per_s"]
+                                      / es.REFERENCE_REPLICA_RATE)
+        L = _attn_layers(get_arch(arch))
+        d = _example_run(
+            runs, "elastic_serving", device,
+            lambda: es.main(request_rate=rate, ckpt_root=root,
+                            duration_s=el["duration_s"] or es.DURATION_S,
+                            **ekw),
+            expect=lambda o: dict(
+                dict.fromkeys(("K1", "K1p", "K2", "K3", "K4"), 0),
+                K1p=L * o["decode_steps"], K2=L * o["admissions"]))
+        rng = np.random.default_rng(el["seed"])
+        sampled = sorted(rng.choice(sorted(d["tokens"]),
+                                    min(el["sample"], len(d["tokens"])),
+                                    replace=False).tolist())
+        alone = es.engine_alone({r: d["prompts"][r] for r in sampled},
+                                {r: d["n_tokens"][r] for r in sampled},
+                                **ekw)
+        d["sampled"] = sampled
+        d["sampled_equal"] = all(alone[r] == d["tokens"][r]
+                                 for r in sampled)
+        d["r1"] = r1
+        for k in ("tokens", "prompts", "n_tokens"):
+            d.pop(k)
+        out["d_elastic_serving"] = d
+        log(phase="examples", run="d_elastic_serving",
+            card=state.get("card"), **d, **runs["elastic_serving"])
+        if not (d["served"] == d["requests"]
+                and d["replicas_after_drain"] == 1
+                and d["sampled_equal"]):
+            raise AssertionError(f"examples (d): served {d['served']} of "
+                                 f"{d['requests']}, drained to "
+                                 f"{d['replicas_after_drain']}, sampled "
+                                 f"tokens equal {d['sampled_equal']}")
+    finally:
+        for n in names:
+            registry.ARCHS.pop(n, None)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) the two smoke tools at their own sizes
+    cs = _script("tools/cluster_smoke_torch.py")
+    serve = cs.IMAGES["serve-small"]
+    L = _attn_layers(get_arch(serve.arch))
+    root = tempfile.mkdtemp(prefix="funky-examples-")
+    try:
+        e = _example_run(
+            runs, "cluster_smoke", device,
+            lambda: cs.main(device=device, ckpt_root=root),
+            expect=lambda o: dict(
+                dict.fromkeys(("K1", "K1p", "K2", "K3", "K4"), 0), K2=L,
+                K1=L * serve.total_steps * serve.tokens_per_step))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["e_cluster_smoke"] = e
+    sa = _script("tools/smoke_all_torch.py")
+    names_e = ec["smoke_all"]["names"] or list(registry.ARCHS)
+    want_e = {n: _smoke_expected(reduced(registry.ARCHS[n]))
+              for n in names_e}
+    s = _example_run(runs, "smoke_all", device,
+                     lambda: sa.main(names_e, device=device),
+                     expect=lambda o: {k: sum(w[k] for w in want_e.values())
+                                       for k in ("K1", "K1p", "K2", "K3",
+                                                 "K4")})
+    bad = [n for n in names_e if not isinstance(s[n], dict)]
+    if device == "cuda":
+        bad += [n for n in names_e if isinstance(s[n], dict)
+                and s[n]["launches"] != want_e[n]]
+    out["e_smoke_all"] = s
+    log(phase="examples", run="e_tools", card=state.get("card"),
+        cluster_smoke=e, smoke_all=s, expected_by_arch=want_e,
+        runs={k: runs[k] for k in ("cluster_smoke", "smoke_all")})
+    if not e.get("ok") or s["fails"] or bad:
+        raise AssertionError(f"examples (e): cluster_smoke {e.get('ok')}, "
+                             f"smoke_all failures {s['fails']}, archs off "
+                             f"their launches or failed {bad}")
+
+    # (f) the features phase's Chrome trace through trace_dump_torch (a
+    # short traced run of its own where that phase did not run)
+    td = _script("tools/trace_dump_torch.py")
+    source = "features (d)"
+    doc = state.get("features_trace_doc")
+    if doc is None:
+        doc, source = _served_trace_doc(device), "yi-9b-smoke, 2 requests"
+    rc = td.check(doc)
+    devs = sum(1 for ev in doc["traceEvents"] if ev.get("ph") == "X"
+               and ev["name"] == "execute.device" and ev.get("dur", 0) > 0)
+    out["f_trace_dump"] = {"rc": rc, "execute_device_spans": devs,
+                           "trace_of": source}
+    log(phase="examples", run="f_trace_dump", card=state.get("card"),
+        **out["f_trace_dump"])
+    if rc != 0 or not devs:
+        raise AssertionError(f"examples (f): trace_dump_torch --check "
+                             f"returned {rc}, {devs} execute.device spans "
+                             "with device time")
+
+    launches = collections.Counter()
+    for r in runs.values():
+        launches.update(r["launches"])
+    stats = {"phase_s": time.perf_counter() - t_phase,
+             "launches": {k: launches.get(k, 0) for k in _wrappers()},
+             "runs": runs}
+    if device == "cuda":
+        stats["peak_gb"] = max(r["peak_gb"] for r in runs.values())
+    log(phase="examples", card=state.get("card"), summary=stats)
+    state.setdefault("launches", {})["examples"] = stats["launches"]
+    state["examples"] = {**out, **stats}
+    if device == "cuda" and stats["phase_s"] > ec["max_phase_s"]:
+        raise AssertionError(f"examples: the phase took "
+                             f"{stats['phase_s']:.1f} s, over "
+                             f"{ec['max_phase_s']} s")
+    if stats.get("peak_gb", 0.0) > ec["max_peak_gb"]:
+        raise AssertionError(f"examples: peak {stats['peak_gb']:.2f} GB, "
+                             f"over {ec['max_peak_gb']} GB")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(state):
     """The per-kernel summary line: each kernel's numbers at its path's
@@ -6028,6 +6409,11 @@ def kernel_line(state):
     # 48 layers on a one-rank mesh; K1 and K2 on the local shards)
     rows[0]["launches_mesh"] = state["launches"]["mesh"]["K1"]
     rows[2]["launches_mesh"] = state["launches"]["mesh"]["K2"]
+    # the examples phase: elastic_serving's replicas (K2 admissions, K1
+    # paged), cluster_smoke's serve image and smoke_all's ten reduced
+    # archs (K1, K2, K3, K4) on the ported scripts' own entry points
+    for row, key in zip(rows, ("K1", "K1", "K2", "K2", "K3", "K4")):
+        row["launches_examples"] = state["launches"]["examples"][key]
     r = state["k1p"]["path"]
     rows.append({
         "name": "decode_attention_paged", "route": "cuda",
@@ -6042,7 +6428,8 @@ def kernel_line(state):
         "event_ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "gather_dense_ms": r["gather_dense_ms"],
-        "launches_train": state["launches"]["train"]["K1p"]})
+        "launches_train": state["launches"]["train"]["K1p"],
+        "launches_examples": state["launches"]["examples"]["K1p"]})
     # the paged entry at the disagg phase's decode replica (its launches
     # counted at its shape, phase_disagg) and the features phase's call
     # patterns: the paged entry at one lane (prefill_chunk) and at verify's

@@ -149,6 +149,13 @@ class ModelConfig:
 
         return analytic_param_count(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (an MoE layer's top-k routed
+        experts, not all of them)."""
+        from repro_torch.models.model_zoo import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -8,7 +8,8 @@ llava-next-mistral-7b."""
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      applicable, reduced)
 from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek_moe_16b
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3_671b
 from repro_torch.configs.llava_next_mistral_7b import \
@@ -36,3 +37,19 @@ def get_arch(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def all_cells() -> list[tuple[ModelConfig, ShapeConfig, bool, str]]:
+    """All 40 (arch x shape) cells with applicability verdicts."""
+    cells = []
+    for arch in ARCHS.values():
+        for shape in SHAPES.values():
+            ok, why = applicable(arch, shape)
+            cells.append((arch, shape, ok, why))
+    return cells

@@ -62,6 +62,14 @@ class ProgramCache:
         with self._lock:
             self._programs[program.program_id] = program
 
+    def __contains__(self, program_id: str) -> bool:
+        return program_id in self._programs
+
+    def get_program(self, program_id: str) -> Program:
+        """The latest ``Program`` registered under ``program_id`` on this
+        node (``get_or_compile`` runs the caller's own, see above)."""
+        return self._programs[program_id]
+
     def get_or_compile(self, prog: Program, abstract_args: tuple,
                        donate_argnums: tuple = ()) -> CompiledEntry:
         """Entry for the caller's own ``prog`` at the given abstract args

@@ -31,6 +31,10 @@ class VSlice:
     owner: Optional[str] = None         # task id
     configured_program: Optional[str] = None   # "bitstream" currently loaded
 
+    @property
+    def name(self) -> str:
+        return f"{self.node_id}/vslice{self.slice_id}"
+
 
 class SliceAllocator:
     """Per-node vSlice pool."""
@@ -66,3 +70,7 @@ class SliceAllocator:
     def free_count(self) -> int:
         with self._lock:
             return sum(1 for s in self.slices if s.owner is None)
+
+    def owned_by(self, task_id: str):
+        with self._lock:
+            return [s for s in self.slices if s.owner == task_id]

@@ -1,3 +1,3 @@
-from repro_torch.serve.serve_step import generate
+from repro_torch.serve.serve_step import generate, sample_token
 
-__all__ = ["generate"]
+__all__ = ["generate", "sample_token"]

@@ -1852,6 +1852,25 @@ class ContinuousBatchingEngine:
                 "engine_spec_k_adapt", engine=self.engine_id,
                 k_from=prev, k_to=self.spec_k_now, window_rate=rate)
 
+    def kv_stats(self) -> dict:
+        """Cache-memory occupancy in the shared byte accounting (the
+        reference's keys).  A paged pool here holds one page more than the
+        reference's, the sink page that takes the writes the reference
+        drops: ``pool_bytes`` counts it, so it is the reference's
+        ``pool_bytes`` plus one ``page_bytes``; the page counts, bytes in
+        use, occupancy and span are over the ``pool_pages`` real pages, as
+        the reference's."""
+        if not self.paged:
+            return {"paged": False, "pool_bytes": self.pool_bytes,
+                    "bytes_in_use": self.pool_bytes, "occupancy": 1.0}
+        used = self.pool.used_count()
+        return {"paged": True, "pool_bytes": self.pool_bytes,
+                "page_bytes": self.page_bytes,
+                "pages_used": used, "pages_free": self.pool.free_count(),
+                "bytes_in_use": used * self.page_bytes,
+                "occupancy": self.pool.occupancy(),
+                "used_span": self.pool.used_span()}
+
     def spec_stats(self) -> dict:
         """Speculation accounting (zeros when spec is off)."""
         lane_iters = max(self.spec_lane_iterations, 1)

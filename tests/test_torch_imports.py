@@ -6,7 +6,9 @@ reference package and starts no process group; ``chip_smoke.py`` and
 without a card raises, and a missing ``nvcc`` is an error, never a
 fallback.  ``chip_smoke.py``'s ``disagg``, ``dense_archs``, ``moe``, ``mla``,
 ``families``, ``launch`` and ``mesh`` phases rehearse on the CPU at smoke
-size.
+size, and so does its ``examples`` phase, which drives the ported
+examples and tools (``examples_torch/*.py``, ``tools/*_torch.py``): these
+import the port only.
 No module sets an environment variable when it is imported (the
 reference's ``launch/roofline.py`` and ``launch/dryrun.py`` set
 ``XLA_FLAGS``; the port's do not).
@@ -86,13 +88,49 @@ def _imported_modules(path: Path) -> set:
     return mods
 
 
+# the JAX package's examples and tools, ported: scripts of their own that
+# import the port only
+PORTED_SCRIPTS = sorted((ROOT / "examples_torch").glob("*.py")) + sorted(
+    (ROOT / "tools").glob("*_torch.py"))
+
+
 def test_port_sources_and_chip_smoke_import_nothing_of_the_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "train_memory.py"]
+    files += PORTED_SCRIPTS
+    assert {f.name for f in PORTED_SCRIPTS} == {
+        "quickstart.py", "checkpoint_restore.py", "preemptive_cluster.py",
+        "elastic_serving.py", "cluster_smoke_torch.py", "smoke_all_torch.py",
+        "trace_dump_torch.py"}
     for f in files:
         for m in _imported_modules(f):
             top = m.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "flax"), (f, m)
+
+
+_SCRIPT_HYGIENE = """
+import importlib.util, sys
+sys.modules["jax"] = None
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(sys.argv) - 1)
+"""
+
+
+def test_ported_scripts_import_without_jax_or_the_reference(tmp_path):
+    """Each ported script loads from another directory with ``jax``
+    blocked (its ``src/`` is found from its own path) and loads nothing of
+    the reference; loading one runs nothing."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT_HYGIENE,
+         *map(str, PORTED_SCRIPTS)], cwd=tmp_path,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(len(PORTED_SCRIPTS))]
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):
@@ -377,3 +415,41 @@ def test_chip_smoke_mesh_phase_rehearses_on_the_cpu():
     for dispatch in ("local", "a2a"):
         assert d["c"][dispatch]["out_equal"] and d["c"][dispatch]["aux_equal"]
     assert not any(state["launches"]["mesh"].values())
+
+
+def test_chip_smoke_examples_phase_rehearses_on_the_cpu():
+    """The ``examples`` phase's code path at the smoke archs on the CPU,
+    each script through its own ``main``: (a) quickstart (cut to 20
+    steps) under its first step's loss, (b) an eviction and every job
+    done, (c) the recovered job bit-equal to an uninterrupted run, (d)
+    every request once, drained to one replica, sampled tokens equal to
+    one engine's, (e) both smoke tools, (f) ``trace_dump_torch``'s check
+    (launch counts, peaks and the budget only on the card)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    state = {}
+    chip_smoke.phase_examples(state, device="cpu", cut=dict(
+        quickstart=dict(arch="yi-9b-smoke", layers=None, steps=20,
+                        peak_lr=3e-3),
+        preemptive=dict(batch_arch="yi-9b-smoke", batch_layers=None,
+                        prod_arch="qwen3-8b-smoke", prod_layers=None),
+        checkpoint=dict(arch="mamba2-1.3b-smoke", layers=None),
+        elastic=dict(arch="yi-9b-smoke", layers=None, rate_s=0.5,
+                     request_rate=10.0, duration_s=2.0, sample=4),
+        smoke_all=dict(names=("yi-9b", "recurrentgemma-9b"))))
+    d = state["examples"]
+    a = d["a_quickstart"]
+    assert a["step"] == 20 and a["final_loss"] < a["first_step_loss"]
+    assert d["b_preemptive_cluster"]["preemptions"] >= 1
+    assert d["c_checkpoint_restore"]["params_equal"]
+    e = d["d_elastic_serving"]
+    assert e["served"] == e["requests"] and e["sampled_equal"]
+    assert e["replicas_after_drain"] == 1 and len(e["sampled"]) == 4
+    assert d["e_cluster_smoke"]["ok"] and d["e_smoke_all"]["fails"] == 0
+    assert d["f_trace_dump"]["rc"] == 0
+    assert d["f_trace_dump"]["execute_device_spans"] > 0
+    assert d["f_trace_dump"]["trace_of"] == "yi-9b-smoke, 2 requests"
+    assert not any(state["launches"]["examples"].values())

@@ -510,7 +510,8 @@ def test_replay_links_recovery_traces():
 def test_migrate_trace_links_pre_and_post():
     """A migrated task's pre- and post-migration traces are linked with
     relation "migrates", the control actions are spans of the ``cluster``
-    trace, and the link survives the Chrome export ``trace_dump`` reads."""
+    trace, and the link survives the Chrome export ``trace_dump_torch``
+    reads."""
     import sys
     import time
 
@@ -560,7 +561,7 @@ def test_migrate_trace_links_pre_and_post():
         assert names & {"orch.resume", "orch.migrate"}
         sys.path.insert(0, "tools")
         try:
-            from trace_dump import links_of, spans_by_trace
+            from trace_dump_torch import links_of, spans_by_trace
         finally:
             sys.path.pop(0)
         doc = tracer.chrome_trace()
